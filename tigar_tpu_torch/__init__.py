@@ -1,0 +1,23 @@
+"""tigar_tpu_torch: the PyTorch/CUDA port of tigar_tpu.
+
+The first slice covers the production path of the Kirchhoff-Love shell:
+the numpy spline core, the extracted spline's volume assembler, the SVK
+shell adjoint density, sliding-window stencil tangents and the
+mixed-precision stencil-multigrid Newton solver.  Three hand-written CUDA
+kernels (``csrc/``) carry the device work: the shell residual, the tangent
+stencil build and the stencil apply.  Each has a plain PyTorch twin in the
+same module; tensors on the CPU go to the twin, CUDA tensors to the kernel.
+
+The package imports torch and numpy only, never jax or tigar_tpu.
+"""
+
+from . import config  # noqa: F401  (TF32 switches)
+
+from .ops.knots import uniform_knots, KnotVector  # noqa: F401
+from .models.bspline import (TensorBSplineBasis,  # noqa: F401
+                             ExplicitBSplineControlMesh)
+from .models.space import SplineSpace, EqualOrderSpline  # noqa: F401
+from .models.extracted import ExtractedSpline  # noqa: F401
+from .models.shell import (SVKShellAdjoint,  # noqa: F401
+                           precompute_shell_reference, svk_shell_adjoint)
+from .solvers.newton_stencil import StencilNewton  # noqa: F401

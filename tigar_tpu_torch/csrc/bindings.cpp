@@ -1,0 +1,196 @@
+// PyTorch bindings of the port's CUDA kernels: the only translation unit
+// that includes the PyTorch headers.  Each function checks device, dtype,
+// shape and contiguity, allocates its output, launches on the current
+// stream and checks the launch.
+#include <torch/extension.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+
+#include <optional>
+#include <vector>
+
+#include "kernels.h"
+
+namespace {
+
+void check(const torch::Tensor& t, const char* name, torch::ScalarType dt,
+           std::vector<int64_t> shape) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dt, name, " has dtype ", t.scalar_type(),
+              ", expected ", dt);
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
+              t.sizes(), ", expected ", c10::IntArrayRef(shape));
+}
+
+void check_float(torch::ScalarType dt) {
+  TORCH_CHECK(dt == torch::kFloat || dt == torch::kDouble,
+              "kernels take float32 or float64, got ", dt);
+}
+
+void check_launch(cudaError_t err, const char* name) {
+  TORCH_CHECK(err == cudaSuccess, name, " launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// the per-point shell data shared by K1 and K2
+struct ShellArgs {
+  int64_t nel, nq;
+};
+
+ShellArgs check_shell(const torch::Tensor& U, const torch::Tensor& conn,
+                      const torch::Tensor& N, const torch::Tensor& dN,
+                      const torch::Tensor& d2N, const torch::Tensor& scale,
+                      const torch::Tensor& DF, const torch::Tensor& d2F,
+                      const torch::Tensor& ra, const torch::Tensor& rb,
+                      const torch::Tensor& ea) {
+  const auto dt = U.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(scale.dim() == 2, "scale must be [nel, nq]");
+  const int64_t nel = scale.size(0), nq = scale.size(1);
+  check(U, "U", dt, {U.size(0)});
+  check(conn, "conn", torch::kInt, {nel, 27});
+  check(N, "N", dt, {nel, nq, 9});
+  check(dN, "dN", dt, {nel, nq, 9, 2});
+  check(d2N, "d2N", dt, {nel, nq, 9, 2, 2});
+  check(scale, "scale", dt, {nel, nq});
+  check(DF, "DF", dt, {nel, nq, 3, 2});
+  check(d2F, "d2F", dt, {nel, nq, 3, 2, 2});
+  check(ra, "ref_a", dt, {nel, nq, 2, 2});
+  check(rb, "ref_b", dt, {nel, nq, 2, 2});
+  check(ea, "ea", dt, {nel, nq, 2, 2});
+  TORCH_CHECK(nel * nq < (int64_t(1) << 31), "too many quadrature points");
+  return {nel, nq};
+}
+
+template <typename T>
+const T* ptr(const torch::Tensor& t) {
+  return t.data_ptr<T>();
+}
+
+}  // namespace
+
+torch::Tensor shell_residual(torch::Tensor U, torch::Tensor conn,
+                             torch::Tensor N, torch::Tensor dN,
+                             torch::Tensor d2N, torch::Tensor scale,
+                             torch::Tensor DF, torch::Tensor d2F,
+                             torch::Tensor ra, torch::Tensor rb,
+                             torch::Tensor ea, std::vector<double> consts,
+                             int64_t ndof) {
+  const auto a = check_shell(U, conn, N, dN, d2N, scale, DF, d2F, ra, rb, ea);
+  TORCH_CHECK(consts.size() == 7, "shell_residual takes 7 constants");
+  TORCH_CHECK(U.size(0) == ndof, "U has ", U.size(0), " entries, ndof ",
+              ndof);
+  const c10::cuda::CUDAGuard guard(U.device());
+  auto r = torch::zeros({ndof}, U.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (U.scalar_type() == torch::kFloat) {
+    using T = float;
+    err = tigar::shell_residual_launch<T>(
+        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N), ptr<T>(dN),
+        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
+        ptr<T>(rb), ptr<T>(ea), consts.data(), r.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::shell_residual_launch<T>(
+        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N), ptr<T>(dN),
+        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
+        ptr<T>(rb), ptr<T>(ea), consts.data(), r.data_ptr<T>(), stream);
+  }
+  check_launch(err, "shell_residual");
+  return r;
+}
+
+torch::Tensor tangent_stencil(torch::Tensor U, torch::Tensor conn,
+                              torch::Tensor N, torch::Tensor dN,
+                              torch::Tensor d2N, torch::Tensor scale,
+                              torch::Tensor DF, torch::Tensor d2F,
+                              torch::Tensor ra, torch::Tensor rb,
+                              torch::Tensor ea, std::vector<double> consts,
+                              std::vector<int64_t> nel_shape,
+                              std::vector<int64_t> grid_shape) {
+  const auto a = check_shell(U, conn, N, dN, d2N, scale, DF, d2F, ra, rb, ea);
+  TORCH_CHECK(consts.size() == 4, "tangent_stencil takes 4 constants");
+  TORCH_CHECK(nel_shape.size() == 2 && grid_shape.size() == 2,
+              "tangent_stencil is 2D");
+  TORCH_CHECK(nel_shape[0] * nel_shape[1] == a.nel, "element grid ",
+              c10::IntArrayRef(nel_shape), " does not match ", a.nel,
+              " elements");
+  TORCH_CHECK(grid_shape[0] == nel_shape[0] + 2 &&
+                  grid_shape[1] == nel_shape[1] + 2,
+              "grid ", c10::IntArrayRef(grid_shape),
+              " is not the p=2 grid of ", c10::IntArrayRef(nel_shape));
+  TORCH_CHECK(a.nq >= 1 && a.nq <= 9, "tangent_stencil takes at most 9 "
+              "quadrature points, got ", a.nq);
+  const c10::cuda::CUDAGuard guard(U.device());
+  auto S = torch::zeros({3, 3, 5, 5, grid_shape[0], grid_shape[1]},
+                        U.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (U.scalar_type() == torch::kFloat) {
+    using T = float;
+    err = tigar::tangent_stencil_launch<T>(
+        nel_shape[0], nel_shape[1], a.nq, conn.data_ptr<int>(), ptr<T>(U),
+        ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), grid_shape[0],
+        grid_shape[1], S.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::tangent_stencil_launch<T>(
+        nel_shape[0], nel_shape[1], a.nq, conn.data_ptr<int>(), ptr<T>(U),
+        ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), grid_shape[0],
+        grid_shape[1], S.data_ptr<T>(), stream);
+  }
+  check_launch(err, "tangent_stencil");
+  return S;
+}
+
+torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
+                            std::optional<torch::Tensor> mask,
+                            std::optional<torch::Tensor> b,
+                            std::optional<torch::Tensor> dinv, double omega,
+                            int64_t mode) {
+  const auto dt = x.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(S.dim() == 6, "S must be [3, 3, 5, 5, ny, nx]");
+  const int64_t ny = S.size(4), nx = S.size(5);
+  check(S, "S", dt, {3, 3, 5, 5, ny, nx});
+  check(x, "x", dt, {3 * ny * nx});
+  if (mask) check(*mask, "mask", dt, {3 * ny * nx});
+  if (b) check(*b, "b", dt, {3 * ny * nx});
+  if (dinv) check(*dinv, "dinv", dt, {3 * ny * nx});
+  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
+  TORCH_CHECK(mode == 0 || b, "mode ", mode, " needs b");
+  TORCH_CHECK(mode != 2 || dinv, "mode 2 needs dinv");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = torch::empty_like(x);
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::stencil_apply_launch<T>(
+        ny, nx, ptr<T>(S), ptr<T>(x), mask ? ptr<T>(*mask) : nullptr,
+        b ? ptr<T>(*b) : nullptr, dinv ? ptr<T>(*dinv) : nullptr, omega,
+        (int)mode, y.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::stencil_apply_launch<T>(
+        ny, nx, ptr<T>(S), ptr<T>(x), mask ? ptr<T>(*mask) : nullptr,
+        b ? ptr<T>(*b) : nullptr, dinv ? ptr<T>(*dinv) : nullptr, omega,
+        (int)mode, y.data_ptr<T>(), stream);
+  }
+  check_launch(err, "stencil_apply");
+  return y;
+}
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("shell_residual", &shell_residual, "K1: SVK shell residual");
+  m.def("tangent_stencil", &tangent_stencil,
+        "K2: SVK shell tangent stencil");
+  m.def("stencil_apply", &stencil_apply,
+        "K3: stencil apply / residual / Jacobi sweep");
+}

@@ -1,0 +1,40 @@
+// Launchers of the port's hand-written CUDA kernels (plain C++ interface:
+// device pointers, sizes, the stream).  Each returns cudaGetLastError()
+// after its launch.  Explicitly instantiated for float and double in the
+// .cu files; bindings.cpp is the only caller.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace tigar {
+
+// K1: SVK shell residual, one thread per quadrature point.
+// consts = {lam_ps, 2 mu, h, h^3/12, load0, load1, load2}.
+template <typename T>
+cudaError_t shell_residual_launch(int nel, int nq, const int* conn,
+                                  const T* U, const T* N, const T* dN,
+                                  const T* d2N, const T* scale, const T* DF,
+                                  const T* d2F, const T* ref_a,
+                                  const T* ref_b, const T* ea,
+                                  const double* consts, T* r,
+                                  cudaStream_t stream);
+
+// K2: SVK shell tangent stencil, one block per element.
+// consts = {lam_ps, 2 mu, h, h^3/12}; S zero-initialised [3,3,5,5,ncpy,ncpx].
+template <typename T>
+cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
+                                   const int* conn, const T* U, const T* dN,
+                                   const T* d2N, const T* scale, const T* DF,
+                                   const T* d2F, const T* ref_a,
+                                   const T* ref_b, const T* ea,
+                                   const double* consts, int ncp_y,
+                                   int ncp_x, T* S, cudaStream_t stream);
+
+// K3: stencil apply.  mode 0: y = A x; 1: y = b - A x;
+// 2: y = x + (omega dinv) (b - A x); A is masked when mask != nullptr.
+template <typename T>
+cudaError_t stencil_apply_launch(int ny, int nx, const T* S, const T* x,
+                                 const T* mask, const T* b, const T* dinv,
+                                 double omega, int mode, T* y,
+                                 cudaStream_t stream);
+
+}  // namespace tigar
