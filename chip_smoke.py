@@ -1,34 +1,47 @@
 #!/usr/bin/env python3
-"""GPU smoke run of tigar_tpu_torch: the production Newton path of the
-clamped SVK Kirchhoff-Love shell on one NVIDIA card.
+"""GPU smoke run of tigar_tpu_torch on one NVIDIA card: the production
+Newton path of the clamped SVK Kirchhoff-Love shell and the matrix-free
+3D Poisson multigrid path.
 
     python3 chip_smoke.py
 
-Problem (as tigar_tpu's bench._build_solver): 128x128 biquadratic
+Shell problem (as tigar_tpu's bench._build_solver): 128x128 biquadratic
 elements, 3 displacement fields, 3*130^2 = 50,700 DoFs, load q=100,
 E=1e7, nu=0.3, h=0.03, multigrid levels 64^2, 32^2, 16^2, 8^2; options
 cg_iters=15, build_quad_degree=2, rebuild_rel=0.1, polish_tangent="cast".
 
+Poisson problem (as demos/poisson/poisson_large_3d.py): -lap u = f on the
+unit cube, u = sin(pi x) sin(pi y) sin(pi z), homogeneous Dirichlet on
+every side, p=2, 96^3 elements, 98^3 = 941,192 DoFs, quadrature degree 4;
+f64 CG, 20 iterations, preconditioned by an f32 V-cycle over 96/48/24/12/6
+with Jacobi V(2,2) smoothing, every operator apply sum-factorized.
+
 Phases, each fatal on failure (nothing is caught):
-  1. build the three CUDA kernels from tigar_tpu_torch/csrc;
-  2. per kernel, at the main path's shapes and a seeded smooth state
-     (displacement ~0.1): kernel against its plain PyTorch twin on the card
-     (max relative error; tolerance f64 1e-12, f32 1e-4 on stencils and
-     1e-5 elsewhere) and both times;
-  3. the main path with every launch count reset: one production step
-     after a warm-up (best of 3) and the full solve to rtol=1e-10;
+  1. build the four CUDA kernels from tigar_tpu_torch/csrc;
+  2. per kernel, at the main paths' shapes and seeded inputs: kernel
+     against its plain PyTorch twin on the card (max relative error;
+     tolerance f64 1e-12, f32 1e-4 on stencils and 1e-5 elsewhere), both
+     times by CUDA events, the kernel's device time per launch by the
+     profiler (taken after phase 5), and its bound (bytes over 3.35 TB/s
+     or operations over the peak rate of the type, the larger); K4 also
+     at a small periodic 3D and a small 2D p=3 case;
+  3. the shell main path with every launch count reset: one production
+     step after a warm-up (best of 3) and the full solve to rtol=1e-10;
   4. the floor certificate: the final f64 residual against the CPU twin of
      the residual kernel on the same state (rel64 <= 3 cpu_rel,
      rel64 <= 1e-8, |dU|/|U| <= 1e-10; or rel64 <= 1e-10);
-  5. a small-input reference: the nel=8 solve on the card against the
-     same solve through the CPU twins.
-  6. where the time goes: a polish step timed like the production step,
-     then a torch.profiler trace of one production and one polish step
-     (device time by kernel, the device's busy share of the step).
-Every launch counter of the main path (phase 3) must be positive.  The
-next-to-last line is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device the script
-raises.
+  5. the Poisson main path with every launch count reset: setup, the
+     96^3 MG-CG solve (cold, then warm), relative residual <= 1e-10, the
+     L2 error and K4's launches (21 f64 + 21 x 16 f32);
+  6. the shell's small-input reference (nel=8, card against CPU twins) and
+     where the shell step's time goes (torch.profiler);
+  7. the Poisson solve at 48^3 (rel <= 1e-10, L2 rate log2(e48/e96) >
+     2.7), the mixed-precision refinement branch at 96^3, the 12^3
+     solve on the card against the CPU twins (U within 1e-10) and where
+     the 96^3 solve's time goes.
+The next-to-last line is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.  Without a CUDA device the
+script raises.
 """
 
 import json
@@ -46,6 +59,14 @@ import torch  # noqa: E402
 E_MOD, NU, H_TH, Q = 1.0e7, 0.3, 0.03, 100.0
 NEL = 128
 TOL = {"f64": 1e-12, "f32": 1e-5, "f32_stencil": 1e-4}
+
+# Poisson path (demos/poisson/poisson_large_3d.py)
+P3, NEL3, QD3, MG_ITERS = 2, 96, 4, 20
+
+# the card's published rates (NVIDIA H100 SXM data sheet, 700 W): memory,
+# and arithmetic outside the tensor cores per type
+MEM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 CARD = None
 
@@ -122,8 +143,63 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def compare(name, kernel, twin, tol, reps, twin_reps, record):
-    """Kernel against twin on the same inputs: errors, times, the gate."""
+def device_ms(fn, reps, match):
+    """Device time per call of the kernels whose name contains ``match``
+    over ``reps`` calls (torch.profiler, device-side events only), and
+    the number of such kernel launches per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and match in e.key
+          and e.self_device_time_total > 0]
+    if not ev:
+        return None, 0
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / reps,
+            sum(e.count for e in ev) / reps)
+
+
+def kernel_device_times(rec):
+    """Device time per launch of the timed kernel phases (torch.profiler),
+    taken after the main paths so that no profiler session precedes their
+    timing."""
+    for phases in rec.values():
+        for p in phases:
+            if "probe" not in p:
+                continue
+            fn, reps, match = p.pop("probe")
+            p["dev_ms"], per_call = device_ms(fn, reps, match)
+            dev = ("not measured" if p["dev_ms"] is None
+                   else f"{p['dev_ms']:.4f} ms")
+            say(f"{p['name']}: device time per call ({match}, {per_call:g} "
+                f"kernels per call) {dev}")
+
+
+def bound(nbytes, flops, dtype):
+    """(least time in ms, "bytes" or "operations"): each input read once
+    and each output written once at MEM_BPS, against ``flops`` at the
+    type's peak rate."""
+    t_mem = nbytes / MEM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
+            work=None):
+    """Kernel against twin on the same inputs: errors, times, the gate.
+    ``match`` names the kernel for the profiler's device time per launch
+    (taken later by ``kernel_device_times``); ``work`` = (bytes, flops,
+    dtype) gives its bound."""
     yk = kernel()
     yt = twin()
     torch.cuda.synchronize()
@@ -139,12 +215,19 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record):
         f"{abs_err:.3e}, kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
     if not rel <= tol:
         raise SystemExit(f"phase {name} FAILED: rel err {rel:.3e} > {tol:g}")
-    record.append(dict(name=name, rel=rel, abs=abs_err, ms=ms,
-                       plain_ms=plain_ms))
+    entry = dict(name=name, rel=rel, abs=abs_err, ms=ms, plain_ms=plain_ms)
+    if match is not None:
+        entry["probe"] = (kernel, reps, match)
+    if work is not None:
+        entry["bound_ms"], entry["bound_by"] = bound(*work)
+        say(f"    bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+            f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP)")
+    record.append(entry)
 
 
 def kernel_phases(ns):
-    from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
+    from tigar_tpu_torch.ops.assembly import (residual_vector_adjoint_ref,
+                                              shell_kernel_args)
     from tigar_tpu_torch.ops.stencil import (build_stencil,
                                              build_stencil_ref,
                                              stencil_apply, stencil_apply_ref)
@@ -157,17 +240,30 @@ def kernel_phases(ns):
 
     for tag, asm, U, tol in (("f64", ns.asm64, U64, TOL["f64"]),
                              ("f32", ns.asm32, U32, TOL["f32"])):
+        # K1 reads U and the per-point data once and writes r; operations:
+        # at least the jet contractions, 2 x 189 multiply-adds per point
+        args = shell_kernel_args(asm, dens, U)
+        work = (nbytes(U, U, *args), 756.0 * asm.nel * asm.nq, U.dtype)
         compare(f"K1 shell_residual {tag} nq={asm.nq}",
                 lambda a=asm, u=U: a.residual_vector_adjoint(dens, u),
                 lambda a=asm, u=U: residual_vector_adjoint_ref(a, dens, u),
-                tol, 20, 3, rec["shell_residual"])
+                tol, 20, 3, rec["shell_residual"],
+                match="shell_residual_kernel", work=work)
 
     basis = ns.basis
     for asm in (ns.asm_b32, ns.asm32):
+        # K2 reads all but N and writes S; operations: at least the
+        # element matrix of the 18x18 pointwise Jacobian with each local
+        # function in 6 jet slots, 2 (18*27*6 + 27*27*6) per point
+        args = shell_kernel_args(asm, dens, U32)
+        S_bytes = 225 * ns.mask32.numel() // 3 * 4
+        work = (nbytes(U32, *args[:1], *args[2:]) + S_bytes,
+                14580.0 * asm.nel * asm.nq, torch.float32)
         compare(f"K2 tangent_stencil f32 nq={asm.nq}",
                 lambda a=asm: build_stencil(a, dens, U32, basis, 3).S,
                 lambda a=asm: build_stencil_ref(a, dens, U32, basis, 3).S,
-                TOL["f32_stencil"], 5, 1, rec["tangent_stencil"])
+                TOL["f32_stencil"], 5, 1, rec["tangent_stencil"],
+                match="tangent_stencil_kernel", work=work)
 
     st_fine = build_stencil(ns.asm_b32, dens, U32, basis, 3)
     levels = [("fine", st_fine, ns.mask32),
@@ -184,12 +280,138 @@ def kernel_phases(ns):
             dinv = 1.0 / (m * st.diagonal() + (1.0 - m))
             for mode in ("apply", "residual", "jacobi"):
                 kw = dict(mask=m, b=b, dinv=dinv, omega=0.7, mode=mode)
+                timed = (mode, tag, lname) == ("jacobi", "f32", "fine")
+                # the Jacobi sweep reads S, x, mask, b, dinv and writes y;
+                # 225 multiply-adds per grid point
+                work = (nbytes(st.S, x, m, b, dinv, x),
+                        450.0 * n / 3, dt) if timed else None
                 compare(f"K3 stencil_apply {mode} {tag} {lname} "
                         f"grid={st.grid_shape}",
                         lambda s=st, kw=kw, x=x: stencil_apply(s, x, **kw),
                         lambda s=st, kw=kw, x=x: stencil_apply_ref(s, x,
                                                                    **kw),
-                        tol, 50, 10, rec["stencil_apply"])
+                        tol, 50, 10, rec["stencil_apply"],
+                        match="stencil_apply_kernel" if timed else None,
+                        work=work)
+    return rec
+
+
+# -- the Poisson path ---------------------------------------------------------
+
+
+def poisson_levels(nel):
+    """Multigrid bases [nel, nel/2, ...] down to 6 elements per direction
+    (as the demo), each with its homogeneous Dirichlet mask."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    sizes = []
+    n = nel
+    while n >= 6 and (not sizes or sizes[-1] % 2 == 0):
+        sizes.append(n)
+        n //= 2
+    bases = [TensorBSplineBasis([P3] * 3,
+                                [uniform_knots(P3, 0.0, 1.0, s)] * 3)
+             for s in sizes]
+    masks = []
+    for bs in bases:
+        m = np.ones(bs.ncp)
+        for d in range(3):
+            for side in (0, 1):
+                m[bs.side_dofs(d, side)] = 0.0
+        masks.append(m)
+    return bases, masks
+
+
+def soln(x, y, z):
+    return torch.sin(torch.pi * x) * torch.sin(torch.pi * y) \
+        * torch.sin(torch.pi * z)
+
+
+def f_rhs(x, y, z):
+    return 3.0 * torch.pi ** 2 * soln(x, y, z)
+
+
+def poisson_setup(nel, device):
+    """Right-hand side, the f64 operator and the f32 V-cycle (as the demo)."""
+    from tigar_tpu_torch.ops.sumfac import (make_sumfac_identity_operator,
+                                            sumfac_linear_form)
+    from tigar_tpu_torch.solvers.multigrid import identity_poisson_multigrid
+    bases, masks = poisson_levels(nel)
+    mask64 = torch.as_tensor(masks[0], device=device)
+    b = sumfac_linear_form(bases[0], QD3, f_rhs, device=device) * mask64
+    op64 = make_sumfac_identity_operator(bases[0], QD3, mask=mask64,
+                                         device=device)
+    mg32 = identity_poisson_multigrid(bases, QD3, masks,
+                                      dtype=torch.float32, device=device)
+    return dict(bases=bases, mask64=mask64, b=b, op64=op64,
+                M=lambda r: mg32(r.to(torch.float32)).to(r.dtype))
+
+
+def poisson_solve(pb):
+    """The MG-CG solve: (U, relative residual)."""
+    from tigar_tpu_torch.solvers.linear import cg_fixed_iters
+    U, r = cg_fixed_iters(pb["op64"], pb["b"], MG_ITERS, M=pb["M"])
+    rel = float(torch.linalg.norm(r)) / float(torch.linalg.norm(pb["b"]))
+    if tuple(U.shape) != (pb["b"].numel(),) or not bool(
+            torch.isfinite(U).all()):
+        raise SystemExit("Poisson solution is not finite or has the wrong "
+                         "shape")
+    return U, rel
+
+
+def l2_error(pb, U):
+    from tigar_tpu_torch.ops.sumfac import sumfac_l2_error
+    return float(sumfac_l2_error(pb["bases"][0], QD3, U, soln))
+
+
+def sumfac_flops(data):
+    """Operations of one K4 apply: per element the forward and the
+    transposed contraction chains (2 Q P1^3 + 3 Q^2 P1^2 + 4 Q^3 P1
+    multiply-adds each way in 3D, 2 Q P1^2 + 3 Q^2 P1 in 2D) plus one
+    weight product per field and point."""
+    P1, Q, dim = data.degrees[0] + 1, data.nq, data.dim
+    if dim == 3:
+        ma = 2 * Q * P1 ** 3 + 3 * Q ** 2 * P1 ** 2 + 4 * Q ** 3 * P1
+    else:
+        ma = 2 * Q * P1 ** 2 + 3 * Q ** 2 * P1
+    nel = int(np.prod(data.nel_d))
+    return float(nel * (2 * 2 * ma + (dim + 1) * Q ** dim))
+
+
+def sumfac_phases(device):
+    """K4 against its plain version: at the Poisson path's fine level in
+    f64 and f32, and once at a small periodic 3D and a small 2D p=3
+    case."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    from tigar_tpu_torch.ops.sumfac import (build_sumfac_data, sumfac_apply,
+                                            sumfac_apply_ref)
+    bases, masks = poisson_levels(NEL3)
+    rng = np.random.default_rng(2)
+    W64 = torch.as_tensor(rng.normal(size=bases[0].ncp), device=device)
+    rec = []
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        data = build_sumfac_data(bases[0], None, QD3, device, dt)
+        W, m = W64.to(dt), torch.as_tensor(masks[0], device=device).to(dt)
+        tables = data.B + data.D + data.w + data.starts
+        work = (nbytes(W, m, W, *tables), sumfac_flops(data), dt)
+        compare(f"K4 sumfac_apply {tag} {NEL3}^3 p={P3}",
+                lambda d=data, w=W, m=m: sumfac_apply(d, w, 1.0, 0.0, m),
+                lambda d=data, w=W, m=m: sumfac_apply_ref(d, w, 1.0, 0.0, m),
+                TOL[tag], 50, 3, rec, match="sumfac", work=work)
+    small = (("periodic 3D nel=8 p=2", 3, 2, 8, True),
+             ("2D nel=64 p=3", 2, 3, 64, False))
+    for label, dim, p, nel, per in small:
+        basis = TensorBSplineBasis([p] * dim, [uniform_knots(
+            p, 0.0, 1.0, nel, periodic=per)] * dim)
+        Ws = torch.as_tensor(rng.normal(size=basis.ncp), device=device)
+        for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            data = build_sumfac_data(basis, None, 2 * p, device, dt)
+            compare(f"K4 sumfac_apply {tag} {label}",
+                    lambda d=data, w=Ws.to(dt): sumfac_apply(d, w, 1.0, 0.7),
+                    lambda d=data, w=Ws.to(dt): sumfac_apply_ref(d, w, 1.0,
+                                                                 0.7),
+                    TOL[tag], 10, 3, rec)
     return rec
 
 
@@ -243,6 +465,116 @@ def profile_steps(ns, U, step_s):
                 f"{count:6d} x  {key[:90]}")
 
 
+def poisson_main_path(device):
+    """Setup and the 96^3 MG-CG solve with every launch count reset:
+    returns the problem, U, and K4's launches in the cold solve."""
+    from tigar_tpu_torch.ops import cuda_ext
+    t0 = time.perf_counter()
+    pb = poisson_setup(NEL3, device)
+    torch.cuda.synchronize()
+    say(f"poisson setup + RHS: {time.perf_counter() - t0:.3f} s; "
+        f"ndof={pb['b'].numel()}, nel={NEL3}^3, mg levels="
+        f"{[b.nel_per_dir[0] for b in pb['bases']]}")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    U, rel = poisson_solve(pb)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = cuda_ext.counts()["sumfac_apply"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    _, rel_w = poisson_solve(pb)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    err = l2_error(pb, U)
+    nlev = len(pb["bases"])
+    expected = (MG_ITERS + 1) * (1 + 4 * (nlev - 1))
+    say(f"poisson MG-CG solve ({nlev} levels, {MG_ITERS} iterations): cold "
+        f"{t_cold:.3f} s, warm {t_warm:.3f} s; relative residual {rel:.3e} "
+        f"(warm {rel_w:.3e}); L2 error {err:.4e}; K4 launches {launches} "
+        f"(expected {MG_ITERS + 1} f64 + {MG_ITERS + 1} x "
+        f"{4 * (nlev - 1)} f32 = {expected}); peak device memory "
+        f"{peak_gb:.3f} GiB")
+    if not (rel <= 1e-10 and rel_w <= 1e-10):
+        raise SystemExit(f"Poisson MG-CG FAILED: rel {rel:.3e} > 1e-10")
+    if launches != expected:
+        raise SystemExit(f"Poisson main path launched K4 {launches} times, "
+                         f"expected {expected}")
+    return pb, U, err, launches
+
+
+def poisson_checks(device, pb, err96):
+    """48^3 (h-independence and the L2 rate), the refinement branch, the
+    12^3 reference against the CPU twins, and the 96^3 solve's profile."""
+    from tigar_tpu_torch.ops.sumfac import make_sumfac_identity_operator
+    from tigar_tpu_torch.solvers.refinement import refine_solve
+
+    pb48 = poisson_setup(NEL3 // 2, device)
+    U48, rel48 = poisson_solve(pb48)
+    err48 = l2_error(pb48, U48)
+    rate = float(np.log2(err48 / err96))
+    say(f"poisson {NEL3 // 2}^3: relative residual {rel48:.3e}, L2 error "
+        f"{err48:.4e}; L2 rate log2(e{NEL3 // 2}/e{NEL3}) = {rate:.4f}")
+    if not (rel48 <= 1e-10 and rate > 2.7):
+        raise SystemExit("Poisson h-independence / L2 rate FAILED")
+
+    op32 = make_sumfac_identity_operator(
+        pb["bases"][0], QD3, mask=pb["mask64"].to(torch.float32),
+        dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Ur, sweeps, rel_r = refine_solve(pb["op64"], op32, pb["b"], tol=1e-12,
+                                     max_sweeps=30, inner_iters=50)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    say(f"poisson {NEL3}^3 mixed-precision refinement: {t_ref:.3f} s, "
+        f"{sweeps} sweeps, relative residual {rel_r:.3e}, L2 error "
+        f"{l2_error(pb, Ur):.4e}")
+    if not rel_r < 1e-12:
+        raise SystemExit("Poisson refinement did not reach 1e-12")
+
+    pg, pc = poisson_setup(12, device), poisson_setup(12, "cpu")
+    (Ug, relg), (Uc, relc) = poisson_solve(pg), poisson_solve(pc)
+    diff = float((Ug.cpu() - Uc).abs().max() / Uc.abs().max())
+    say(f"poisson small-input reference (12^3): card rel {relg:.3e}, CPU "
+        f"twins rel {relc:.3e}, max rel diff of U {diff:.3e}")
+    if not (diff <= 1e-10 and relg <= 1e-10):
+        raise SystemExit("Poisson small-input reference FAILED")
+
+    profile_poisson(pb)
+
+
+def profile_poisson(pb):
+    """torch.profiler over one warm 96^3 MG-CG solve: device busy time
+    against the un-profiled wall, and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poisson_solve(pb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        poisson_solve(pb)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+    if not rows:
+        say("profile poisson solve: no device time recorded (not measured)")
+        return
+    dev_ms = sum(r[2] for r in rows) / 1e3
+    say(f"profile poisson solve: device busy {dev_ms:.3f} ms of "
+        f"{wall * 1e3:.3f} ms un-profiled wall (busy share "
+        f"{dev_ms / wall / 1e3:.3f}); {sum(r[1] for r in rows)} device ops")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+        say(f"    {us / 1e3:9.3f} ms  {us / 1e3 / dev_ms:6.3f} of busy  "
+            f"{count:6d} x  {key[:90]}")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -261,7 +593,7 @@ def main():
 
     cuda_ext.load()
     say(f"kernel build: {cuda_ext.build_seconds:.1f} s "
-        f"(3 .cu + bindings.cpp, sm_90a)")
+        f"(4 .cu + bindings.cpp, sm_90a)")
 
     t0 = time.time()
     ns, mg_sizes = build_solver(NEL, device)
@@ -271,8 +603,9 @@ def main():
         f"mg levels={[NEL] + mg_sizes}")
 
     rec = kernel_phases(ns)
+    rec["sumfac_apply"] = sumfac_phases(device)
 
-    # -- the main path, with every launch count reset ------------------------
+    # -- the shell main path, with every launch count reset -----------------
     torch.cuda.reset_peak_memory_stats()
     cuda_ext.reset_counts()
     U0 = torch.zeros(ndof, dtype=torch.float64, device=device)
@@ -294,7 +627,8 @@ def main():
     say(f"main-path kernel launches: {launches}")
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("solution is not finite or has the wrong shape")
-    missing = [k for k, v in launches.items() if v <= 0]
+    shell_kernels = ("shell_residual", "tangent_stencil", "stencil_apply")
+    missing = [k for k in shell_kernels if launches[k] <= 0]
     if missing:
         raise SystemExit(f"main path never launched {missing}")
 
@@ -313,7 +647,11 @@ def main():
     if not f64_ok:
         raise SystemExit("floor certificate FAILED")
 
-    # -- where the time goes (after the main path's counts) ----------------
+    # -- the Poisson main path, with every launch count reset ---------------
+    pb, _, err96, launches["sumfac_apply"] = poisson_main_path(device)
+
+    # -- where the time goes (after the main paths' counts) -----------------
+    kernel_device_times(rec)
     best_polish = best_of_3(lambda: ns.polish_step(U1))
     say(f"polish step (frozen stencils): best of 3 "
         f"{best_polish * 1e3:.3f} ms")
@@ -331,16 +669,22 @@ def main():
     if not (err <= 1e-8 and relg <= 1e-9 and abs(itg - itc) <= 1):
         raise SystemExit("small-input reference FAILED")
 
+    poisson_checks(device, pb, err96)
+
     src = {"shell_residual": ("tigar_tpu_torch/csrc/shell_residual.cu",
                               "tigar_tpu/ops/assembly.py:342"),
            "tangent_stencil": ("tigar_tpu_torch/csrc/tangent_stencil.cu",
                                "tigar_tpu/ops/assembly.py:349"),
            "stencil_apply": ("tigar_tpu_torch/csrc/stencil_apply.cu",
-                             "tigar_tpu/ops/stencil.py:73")}
-    # times at the production step's shapes: K1 f32, K2 f32 at the reduced
-    # rule, K3 f32 Jacobi sweep on the fine grid
+                             "tigar_tpu/ops/stencil.py:73"),
+           "sumfac_apply": ("tigar_tpu_torch/csrc/sumfac_apply.cu",
+                            "tigar_tpu/ops/sumfac.py:208")}
+    # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
+    # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
+    # level (336 of the solve's 357 launches)
     pick = {"shell_residual": "f32", "tangent_stencil": f"nq={ns.asm_b32.nq}",
-            "stencil_apply": "jacobi f32 fine"}
+            "stencil_apply": "jacobi f32 fine",
+            "sumfac_apply": f"f32 {NEL3}^3"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]
@@ -348,7 +692,9 @@ def main():
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
             "max_abs_err": max(p["abs"] for p in phases),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"]})
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None, "device_ms": timed["dev_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

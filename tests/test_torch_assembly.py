@@ -49,7 +49,8 @@ def _pair(sj, quad_degree=None, dtype=torch.float64):
     aj = sj._assembler("dx", **kw)
     if dtype == torch.float32:
         aj = aj.astype(jnp.float32)
-    return aj, assembler_from_numpy(assembler_arrays(aj), dtype=dtype)
+    return aj, assembler_from_numpy(assembler_arrays(aj), device="cpu",
+                                    dtype=dtype)
 
 
 def test_residual_f64(shell6):

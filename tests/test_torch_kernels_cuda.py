@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of tigar_tpu_torch against their plain PyTorch
-twins, on the card (nel=8 clamped SVK shell plate).  Every test skips
-without a CUDA device; run them on a GPU machine with
+twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
+small 2D/3D sum-factorized operators).  Every test skips without a CUDA
+device; run them on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -24,6 +25,7 @@ from tigar_tpu_torch.ops import cuda_ext
 from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
 from tigar_tpu_torch.ops.stencil import (build_stencil, build_stencil_ref,
                                          stencil_apply, stencil_apply_ref)
+from tigar_tpu_torch.ops import sumfac
 from tigar_tpu_torch.solvers.newton_stencil import StencilNewton
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +140,66 @@ def test_main_path_runs_through_kernels(cuda):
     assert c["stencil_apply"] > 100
     assert np.isfinite(float(rn)) and np.isfinite(float(rn64))
     assert float(torch.linalg.norm(U2)) > 0.0
+
+
+# K4 cases: (dim, p, nel, periodic directions), at the CPU tests' sizes
+SUMFAC_CASES = {
+    "3d_open_p2": (3, 2, 4, (False,) * 3),
+    "2d_open_p3": (2, 3, 5, (False,) * 2),
+    "2d_periodic_tf_p3": (2, 3, 5, (True, False)),
+    "3d_periodic_p2": (3, 2, 4, (True,) * 3),
+}
+
+
+def _sumfac_data(name, cuda, dtype, metric):
+    """Sum-factorization tables of a case, with a seeded SPD metric G and
+    mass weight Gm when ``metric``."""
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    dim, p, nel, per = SUMFAC_CASES[name]
+    basis = TensorBSplineBasis([p] * dim, [uniform_knots(p, 0.0, 1.0, nel,
+                                                         periodic=q)
+                                           for q in per])
+    data = sumfac.build_sumfac_data(basis, None, 2 * p, cuda, dtype)
+    if metric:
+        rng = np.random.default_rng(5)
+        npt = (p + 1) ** dim
+        A = rng.normal(size=(basis.nel, npt, dim, dim))
+        G = A @ np.swapaxes(A, -1, -2) + dim * np.eye(dim)
+        data.G = torch.as_tensor(G, dtype=dtype, device=cuda)
+        data.Gm = torch.as_tensor(rng.uniform(0.5, 1.5, (basis.nel, npt)),
+                                  dtype=dtype, device=cuda)
+    mask = np.ones(basis.ncp)
+    if not per[0]:
+        mask[basis.side_dofs(0, 0)] = 0.0
+    return data, torch.as_tensor(mask, dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("metric", [False, True], ids=["identity", "metric"])
+@pytest.mark.parametrize("name", list(SUMFAC_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sumfac_apply_kernel(cuda, name, metric, dtype, tol):
+    data, mask = _sumfac_data(name, cuda, dtype, metric)
+    W = torch.as_tensor(np.random.default_rng(6).normal(size=data.ndof),
+                        dtype=dtype, device=cuda)
+    for m in (None, mask):
+        n0 = cuda_ext.counts()["sumfac_apply"]
+        r_k = sumfac.sumfac_apply(data, W, 1.0, 0.7, m)
+        r_t = sumfac.sumfac_apply_ref(data, W, 1.0, 0.7, m)
+        torch.cuda.synchronize()
+        assert cuda_ext.counts()["sumfac_apply"] == n0 + 1
+        assert r_k.dtype == dtype and r_k.is_cuda
+        assert _rel(r_k, r_t) <= tol, (m is None, _rel(r_k, r_t))
+
+
+def test_sumfac_kernel_refuses_what_it_cannot_take(cuda):
+    data, _ = _sumfac_data("3d_open_p2", cuda, torch.float64, False)
+    W = torch.zeros(data.ndof, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        sumfac.sumfac_apply(data, W.to(torch.float16), 1.0, 0.0)
+    with pytest.raises(ValueError):
+        sumfac.sumfac_apply(data, torch.zeros(2 * data.ndof,
+                                              device=cuda)[::2], 1.0, 0.0)
+    data.degrees = (4, 4, 4)
+    with pytest.raises(ValueError):
+        sumfac.sumfac_apply(data, W, 1.0, 0.0)

@@ -41,7 +41,7 @@ def _stencil(nel, seed):
 def case(request):
     stj, mask, (x, b) = _stencil(request.param, seed=request.param)
     stt = stencil_from_numpy(np.asarray(stj.S), stj.grid_shape,
-                             stj.degrees, stj.nf)
+                             stj.degrees, stj.nf, device="cpu")
     return stj, stt, mask, x, b
 
 

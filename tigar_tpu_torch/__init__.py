@@ -1,12 +1,16 @@
 """tigar_tpu_torch: the PyTorch/CUDA port of tigar_tpu.
 
-The first slice covers the production path of the Kirchhoff-Love shell:
-the numpy spline core, the extracted spline's volume assembler, the SVK
-shell adjoint density, sliding-window stencil tangents and the
-mixed-precision stencil-multigrid Newton solver.  Three hand-written CUDA
-kernels (``csrc/``) carry the device work: the shell residual, the tangent
-stencil build and the stencil apply.  Each has a plain PyTorch twin in the
-same module; tensors on the CPU go to the twin, CUDA tensors to the kernel.
+Two production paths are ported.  The Kirchhoff-Love shell: the numpy
+spline core, the extracted spline's volume assembler, the SVK shell
+adjoint density, sliding-window stencil tangents and the mixed-precision
+stencil-multigrid Newton solver.  The matrix-free 3D Poisson solve:
+sum-factorized operators, fixed-iteration CG, a geometric V-cycle over
+knot-insertion transfers and mixed-precision refinement.  Four
+hand-written CUDA kernels (``csrc/``) carry the device work: the shell
+residual, the tangent stencil build, the stencil apply and the
+sum-factorized apply.  Each has a plain PyTorch twin in the same module;
+tensors on the CPU go to the twin, CUDA tensors to the kernel.  Entry
+points put their tensors on the card unless the caller asks for the CPU.
 
 The package imports torch and numpy only, never jax or tigar_tpu.
 """

@@ -32,3 +32,13 @@ def require_cuda():
         raise RuntimeError("tigar_tpu_torch: this entry point needs a CUDA "
                            "device and none is available")
     return torch.device("cuda")
+
+
+def resolve_device(device):
+    """The ``torch.device`` of a constructor's ``device`` argument.  Entry
+    points default to ``"cuda"``; without a card that raises, and the CPU
+    is used only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        require_cuda()
+    return device

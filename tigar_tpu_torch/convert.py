@@ -24,7 +24,7 @@ import types
 import numpy as np
 import torch
 
-from .config import INDEX_TYPE
+from .config import INDEX_TYPE, resolve_device
 from .forms import QP
 from .models.shell import ShellReference
 from .ops.assembly import DomainAssembler
@@ -61,8 +61,10 @@ def assembler_arrays(asm):
     return out
 
 
-def assembler_from_numpy(arrays, device="cpu", dtype=torch.float64):
+def assembler_from_numpy(arrays, device="cuda", dtype=torch.float64):
     """This package's DomainAssembler from ``assembler_arrays`` output."""
+    device = resolve_device(device)
+
     def t(name):
         return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
                                device=device)
@@ -88,9 +90,9 @@ def assembler_from_numpy(arrays, device="cpu", dtype=torch.float64):
     return asm
 
 
-def stencil_from_numpy(S, grid_shape, degrees, nf, device="cpu",
+def stencil_from_numpy(S, grid_shape, degrees, nf, device="cuda",
                        dtype=torch.float64):
     """This package's StencilOperator from a numpy stencil array."""
     return StencilOperator(torch.as_tensor(np.array(S), dtype=dtype,
-                                           device=device),
+                                           device=resolve_device(device)),
                            grid_shape, degrees, nf)

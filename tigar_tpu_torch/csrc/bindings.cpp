@@ -187,7 +187,105 @@ torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
   return y;
 }
 
+namespace {
+
+template <typename T>
+cudaError_t run_sumfac(const torch::Tensor& W,
+                       const std::vector<torch::Tensor>& B,
+                       const std::vector<torch::Tensor>& D,
+                       const std::vector<torch::Tensor>& starts,
+                       const std::vector<torch::Tensor>& w,
+                       const std::optional<torch::Tensor>& G,
+                       const std::optional<torch::Tensor>& Gm,
+                       const std::optional<torch::Tensor>& mask,
+                       const std::vector<int64_t>& ncp, double ck, double cm,
+                       torch::Tensor& r) {
+  tigar::SumfacArgs<T> a{};
+  a.dim = (int)ncp.size();
+  a.nq = (int)B[0].size(1);
+  a.p1 = (int)B[0].size(2);
+  for (int d = 0; d < a.dim; ++d) {
+    a.nel[d] = (int)B[d].size(0);
+    a.ncp[d] = (int)ncp[d];
+    a.B[d] = ptr<T>(B[d]);
+    a.D[d] = ptr<T>(D[d]);
+    a.starts[d] = starts[d].data_ptr<int>();
+    a.w[d] = w.empty() ? nullptr : ptr<T>(w[d]);
+  }
+  a.G = G ? ptr<T>(*G) : nullptr;
+  a.Gm = Gm ? ptr<T>(*Gm) : nullptr;
+  a.W = ptr<T>(W);
+  a.mask = mask ? ptr<T>(*mask) : nullptr;
+  a.ck = T(ck);
+  a.cm = T(cm);
+  a.r = r.data_ptr<T>();
+  return tigar::sumfac_apply_launch<T>(
+      a, c10::cuda::getCurrentCUDAStream().stream());
+}
+
+}  // namespace
+
+torch::Tensor sumfac_apply(torch::Tensor W, std::vector<torch::Tensor> B,
+                           std::vector<torch::Tensor> D,
+                           std::vector<torch::Tensor> starts,
+                           std::vector<torch::Tensor> w,
+                           std::optional<torch::Tensor> G,
+                           std::optional<torch::Tensor> Gm,
+                           std::optional<torch::Tensor> mask,
+                           std::vector<int64_t> ncp, double ck, double cm) {
+  const auto dt = W.scalar_type();
+  check_float(dt);
+  const int64_t dim = (int64_t)ncp.size();
+  TORCH_CHECK(dim == 2 || dim == 3, "sumfac_apply is 2D or 3D, got ", dim);
+  TORCH_CHECK((int64_t)B.size() == dim && (int64_t)D.size() == dim &&
+                  (int64_t)starts.size() == dim,
+              "sumfac_apply needs B, D and starts per direction");
+  TORCH_CHECK(B[0].dim() == 3, "B must be [nel_d, nq, p + 1]");
+  const int64_t nq = B[0].size(1), p1 = B[0].size(2);
+  TORCH_CHECK(p1 >= 2 && p1 <= 4 && (nq == p1 || nq == p1 + 1),
+              "sumfac_apply takes p in 1..3 and nq in {p + 1, p + 2}, got p ",
+              p1 - 1, ", nq ", nq);
+  int64_t nel = 1, ndof = 1, npt = 1;
+  for (int64_t d = 0; d < dim; ++d) {
+    const int64_t nel_d = B[d].size(0);
+    check(B[d], "B", dt, {nel_d, nq, p1});
+    check(D[d], "D", dt, {nel_d, nq, p1});
+    check(starts[d], "starts", torch::kInt, {nel_d});
+    TORCH_CHECK(ncp[d] >= p1, "direction ", d, " has ", ncp[d],
+                " functions, fewer than p + 1");
+    nel *= nel_d;
+    ndof *= ncp[d];
+    npt *= nq;
+  }
+  check(W, "W", dt, {ndof});
+  if (mask) check(*mask, "mask", dt, {ndof});
+  if (G) {
+    TORCH_CHECK(Gm && w.empty(), "a metric G comes with Gm and no 1D weights");
+    check(*G, "G", dt, {nel, npt, dim, dim});
+    check(*Gm, "Gm", dt, {nel, npt});
+  } else {
+    TORCH_CHECK(!Gm && (int64_t)w.size() == dim,
+                "identity geometry needs the 1D weights per direction");
+    for (int64_t d = 0; d < dim; ++d)
+      check(w[d], "w", dt, {B[d].size(0), nq});
+  }
+  TORCH_CHECK(ndof < (int64_t(1) << 31) && nel < (int64_t(1) << 31),
+              "too many elements or DoFs");
+  const c10::cuda::CUDAGuard guard(W.device());
+  auto r = torch::empty({ndof}, W.options());
+  cudaError_t err;
+  if (dt == torch::kFloat)
+    err = run_sumfac<float>(W, B, D, starts, w, G, Gm, mask, ncp, ck, cm, r);
+  else
+    err = run_sumfac<double>(W, B, D, starts, w, G, Gm, mask, ncp, ck, cm,
+                             r);
+  check_launch(err, "sumfac_apply");
+  return r;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("sumfac_apply", &sumfac_apply,
+        "K4: sum-factorized stiffness/mass apply");
   m.def("shell_residual", &shell_residual, "K1: SVK shell residual");
   m.def("tangent_stencil", &tangent_stencil,
         "K2: SVK shell tangent stencil");

@@ -37,4 +37,29 @@ cudaError_t stencil_apply_launch(int ny, int nx, const T* S, const T* x,
                                  double omega, int mode, T* y,
                                  cudaStream_t stream);
 
+// K4: sum-factorized r = ck K (mask W) + cm M (mask W), then, when mask is
+// given, r = mask r + (1 - mask) W.  Per direction d (0 first): B, D
+// [nel_d][nq][p1], starts [nel_d]; identity geometry takes the 1D weights
+// w [nel_d][nq] and G = Gm = nullptr, a metric G [nel][nq^dim][dim][dim]
+// and Gm [nel][nq^dim] (elements and points in C order over directions
+// dim-1..0).  p1 in 2..4, nq in {p1, p1 + 1}.
+template <typename T>
+struct SumfacArgs {
+  int dim, p1, nq;
+  int nel[3], ncp[3];
+  const T* B[3];
+  const T* D[3];
+  const int* starts[3];
+  const T* w[3];
+  const T* G;
+  const T* Gm;
+  const T* W;
+  const T* mask;
+  T ck, cm;
+  T* r;
+};
+
+template <typename T>
+cudaError_t sumfac_apply_launch(const SumfacArgs<T>& a, cudaStream_t stream);
+
 }  // namespace tigar

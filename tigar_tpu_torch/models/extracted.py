@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_REAL_TYPE
+from ..config import DEFAULT_REAL_TYPE, resolve_device
 from ..ops.quadrature import npoints_for_degree
 from ..ops.geometry import precompute_geometry
 from ..ops.assembly import DomainAssembler
@@ -30,16 +30,17 @@ class ExtractedSpline:
     nders       : derivative order to tabulate (2 for shells)
     geom_nders  : derivative order for the geometry (defaults to nders)
     device, dtype : where and in which precision the assembler tensors live
+                  (the card unless the caller asks for ``"cpu"``)
     """
 
     def __init__(self, space, quad_degree, nders=1, geom_nders=None,
-                 device="cpu", dtype=DEFAULT_REAL_TYPE):
+                 device="cuda", dtype=DEFAULT_REAL_TYPE):
+        self.device = resolve_device(device)
         self.space = space
         self.quad_degree = int(quad_degree)
         self.npts = npoints_for_degree(quad_degree)
         self.nders = int(nders)
         self.geom_nders = self.nders if geom_nders is None else int(geom_nders)
-        self.device = torch.device(device)
         self.dtype = dtype
 
         self.control_basis = space.control_mesh.scalar_basis()
@@ -55,6 +56,11 @@ class ExtractedSpline:
         self.mask = torch.as_tensor(space.bc_mask(), dtype=dtype,
                                     device=self.device)
         self._assembler("dx")
+
+    @property
+    def geometry(self):
+        """QP at volume quadrature points, leaves [nel, nq, ...]."""
+        return self._assembler("dx").ctx
 
     def _field_tab(self, basis, domain, nders=None, npts=None):
         nders = self.nders if nders is None else nders
