@@ -17,7 +17,7 @@ f64 CG, 20 iterations, preconditioned by an f32 V-cycle over 96/48/24/12/6
 with Jacobi V(2,2) smoothing, every operator apply sum-factorized.
 
 Phases, each fatal on failure (nothing is caught):
-  1. build the four CUDA kernels from tigar_tpu_torch/csrc;
+  1. build the seven CUDA kernels from tigar_tpu_torch/csrc;
   2. per kernel, at the main paths' shapes and seeded inputs: kernel
      against its plain PyTorch twin on the card (max relative error;
      tolerance f64 1e-12, f32 1e-4 on stencils and 1e-5 elsewhere), both
@@ -25,8 +25,9 @@ Phases, each fatal on failure (nothing is caught):
      profiler (taken after phase 5), and its bound (bytes over 3.35 TB/s
      or operations over the peak rate of the type, the larger); K4 also
      at a small periodic 3D and a small 2D p=3 case;
-  3. the shell main path with every launch count reset: one production
-     step after a warm-up (best of 3) and the full solve to rtol=1e-10;
+  3. the shell main path: one production step after a warm-up (best of
+     3), then the full solve to rtol=1e-10 with every launch count reset
+     just before it and read just after;
   4. the floor certificate: the final f64 residual against the CPU twin of
      the residual kernel on the same state (rel64 <= 3 cpu_rel,
      rel64 <= 1e-8, |dU|/|U| <= 1e-10; or rel64 <= 1e-10);
@@ -39,6 +40,24 @@ Phases, each fatal on failure (nothing is caught):
      2.7), the mixed-precision refinement branch at 96^3, the 12^3
      solve on the card against the CPU twins (U within 1e-10) and where
      the 96^3 solve's time goes.
+  8. the two-patch coupled shell (as tigar_tpu's bench._two_patch_point
+     with BENCH_TP_NEL=64, BENCH_TP_COUPLING=penalty): the clamped SVK
+     plate of the shell path split at x=0 into two non-matching patches
+     (64x128 and 64x132 elements, 52,272 DoFs), displacement + rotation
+     penalty coupling (pd = 1e2 E h / h_el, pr = 1e2 E h^3 / h_el per
+     level), MultiPatchStencilNewton over (64,128,132), (32,64,66),
+     (16,32,33) with cg_iters=15, polish_cg_iters=40, polish_tangent="f64",
+     build_quad_degree=2, rebuild_rel=0.1.  K1 over the concatenated
+     patches, K2 on each patch's element range (f32 and f64), K3's patch
+     mode (every mode, f32 and f64), K5-K7 against their plain versions at
+     these shapes; the best of 3 warm f32 steps; the full solve
+     (start_polish, as the bench) with every launch count reset just
+     before it and read just after; the
+     floor certificate (the final f64 residual within 3x of the CPU plain
+     versions of K1 and of the interface residual, and rel64 <= 1e-6 with
+     |dU|/|U| <= 1e-10, or rel64 <= 1e-10); the small-input reference at
+     the size of tests/test_newton_mp.py (card against CPU plain versions:
+     steps within 1, U within 1e-7).
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -575,6 +594,330 @@ def profile_poisson(pb):
             f"{count:6d} x  {key[:90]}")
 
 
+# -- the two-patch coupled shell path -------------------------------------------
+
+TP_NEL = 64                       # bench.py's BENCH_TP_NEL default
+TP_FLOOR_REL = 1e-6               # bench.py's penalty-mode floor_rel
+TP_REF = dict(E=1.0e7, h=0.05, q=0.05, nel=8)   # tests/test_newton_mp.py
+
+
+def two_patch_spline(nx, nay, nby, device, bench=True):
+    """Two biquadratic patches A (nx x nay) and B (nx x nby) meeting at a
+    non-matching interface.  ``bench``: bench._two_patch_point's plate,
+    [-1,0] x [-1,1] and [0,1] x [-1,1], every outer side clamped;
+    otherwise tests/test_newton_mp.py's, [0,1]^2 and [1,2] x [0,1],
+    clamped at x = 0."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    from tigar_tpu_torch.models.multipatch import (MultiPatchBSplineBasis,
+                                                   MultiPatchControlMesh)
+    from tigar_tpu_torch.models.space import EqualOrderSpline
+    from tigar_tpu_torch.models.extracted import ExtractedSpline
+    from tigar_tpu_torch.models.shell import precompute_shell_reference
+    basis = MultiPatchBSplineBasis([
+        TensorBSplineBasis([2, 2], [uniform_knots(2, 0.0, 1.0, nx),
+                                    uniform_knots(2, 0.0, 1.0, ny)])
+        for ny in (nay, nby)])
+
+    def bnet(patch, x_off):
+        g = patch.greville_points()
+        B = np.zeros((g.shape[0], 4))
+        B[:, 0] = g[:, 0] + x_off
+        B[:, 1] = 2.0 * g[:, 1] - 1.0 if bench else g[:, 1]
+        B[:, 3] = 1.0
+        return B
+
+    offs = (-1.0, 0.0) if bench else (0.0, 1.0)
+    cm = MultiPatchControlMesh(basis, [bnet(pt, o) for pt, o in
+                                       zip(basis.patches, offs)])
+    sp = EqualOrderSpline(3, cm)
+    clamps = [(0, 0, 0)]
+    if bench:
+        clamps += [(1, 0, 1), (0, 1, 0), (0, 1, 1), (1, 1, 0), (1, 1, 1)]
+    for patch, direction, side in clamps:
+        dofs = basis.patch_side_dofs(patch, direction, side, n_layers=2)
+        for i in range(3):
+            sp.add_zero_dofs(i, dofs)
+    return precompute_shell_reference(
+        ExtractedSpline(sp, quad_degree=4, nders=2, device=device))
+
+
+def build_two_patch(device, nel=TP_NEL, bench=True):
+    """MultiPatchStencilNewton as bench._two_patch_point builds it in
+    penalty mode (``bench``), or at tests/test_newton_mp.py's size and
+    options: (solver, coupling, level sizes)."""
+    from tigar_tpu_torch.coupling import ShellInterfaceCoupling
+    from tigar_tpu_torch.models.shell import SVKShellAdjoint
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        MultiPatchStencilNewton)
+    E, h, q = (E_MOD, H_TH, Q) if bench else (TP_REF["E"], TP_REF["h"],
+                                              TP_REF["q"])
+    if bench:
+        sizes, (nx, ay, by) = [], (nel, 2 * nel, 2 * nel + 4)
+        while nx >= 16:
+            sizes.append((nx, ay, by))
+            nx, ay, by = nx // 2, ay // 2, by // 2
+    else:
+        sizes = [(2 * nel, 2 * nel, 2 * nel + 4), (nel, nel, nel + 2),
+                 (nel // 2, nel // 2, nel // 2 + 1)]
+    splines, couplings = [], []
+    for nx, ay, by in sizes:
+        sp = two_patch_spline(nx, ay, by, device, bench)
+        h_el = 1.0 / (nx if bench else nel)
+        splines.append(sp)
+        couplings.append(ShellInterfaceCoupling(
+            sp, 0, (0, 1), 1, (0, 0), penalty_disp=1e2 * E * h / h_el,
+            penalty_rot=1e2 * E * h ** 3 / h_el))
+    dens = SVKShellAdjoint(E, NU, h, load=(0.0, 0.0, -q))
+    opts = (dict(cg_iters=15, polish_cg_iters=40, polish_tangent="f64",
+                 build_quad_degree=2, rebuild_rel=0.1) if bench
+            else dict(cg_iters=25, polish_cg_iters=40))
+    ns = MultiPatchStencilNewton(splines[0], dens, couplings[0],
+                                 mg_splines=splines[1:],
+                                 mg_couplings=couplings[1:], **opts)
+    return ns, couplings[0], sizes
+
+
+def mp_smooth_state(ns, seed=0, amp=0.01):
+    """Seeded coarsest-level coefficients prolonged to the fine level
+    (per-patch knot insertion in f64), BC-masked."""
+    g = torch.Generator().manual_seed(seed)
+    U = amp * torch.randn(ns.mg_splines[-1].ndof, generator=g,
+                          dtype=torch.float64).to(ns.mask64.device)
+    for P in reversed(ns._Ps):
+        U = P.up(U)
+    return ns.mask64 * U
+
+
+def iface_kernel_phases(ns, cpl, rec):
+    """K1 over the concatenated patches, K2 on each patch's element range,
+    K3's patch mode, K5, K6 and K7 against their plain versions at the
+    two-patch path's full shapes and a seeded smooth state."""
+    from tigar_tpu_torch.interface import (iform_residual_ref,
+                                           iform_tangent_block_ref)
+    from tigar_tpu_torch.ops.assembly import (residual_vector_adjoint_ref,
+                                              shell_kernel_args)
+    from tigar_tpu_torch.ops.stencil import (build_stencil,
+                                             build_stencil_ref,
+                                             stencil_apply, stencil_apply_ref)
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        iface_block_apply, iface_block_apply_ref)
+    U64 = mp_smooth_state(ns)
+    U32 = U64.float()
+    dens = ns.adjoint
+    idx, pos_a, pos_b = cpl.support_positions()
+    il = idx.long()
+    m, nq = idx.numel(), cpl.wq.numel()
+    say(f"two-patch kernel state: max |U| {float(U64.abs().max()):.4f}; "
+        f"interface: {nq} points, support m={m}")
+    for name in ("iface_block", "shell_iface_residual",
+                 "shell_iface_tangent"):
+        rec.setdefault(name, [])
+
+    # K1 over the concatenated two-patch assembler (work as in
+    # kernel_phases)
+    for tag, asm, U, tol in (("f64", ns.asm64, U64, TOL["f64"]),
+                             ("f32", ns.asm32, U32, TOL["f32"])):
+        args = shell_kernel_args(asm, dens, U)
+        compare(f"K1 shell_residual {tag} two-patch nel={asm.nel} "
+                f"nq={asm.nq}",
+                lambda a=asm, u=U: a.residual_vector_adjoint(dens, u),
+                lambda a=asm, u=U: residual_vector_adjoint_ref(a, dens, u),
+                tol, 10, 2, rec["shell_residual"],
+                work=(nbytes(U, U, *args), 756.0 * asm.nel * asm.nq,
+                      U.dtype))
+
+    # K2 on each patch's element range of the build assembler (global
+    # connectivity, fold position within the patch), f32 and f64 as the
+    # path's f32 builds and f64 polish tangents take it
+    e0 = 0
+    for p, pt in enumerate(ns.basis.patches):
+        for tag, asm, U, tol in (("f32", ns.asm_b32, U32,
+                                  TOL["f32_stencil"]),
+                                 ("f64", ns.asm_b64, U64, TOL["f64"])):
+            sub = asm.elements(e0, e0 + pt.nel)
+            args = shell_kernel_args(sub, dens, U)
+            S_bytes = 225 * pt.ncp * U.element_size()
+            compare(f"K2 tangent_stencil {tag} two-patch patch {'AB'[p]} "
+                    f"nel={pt.nel} nq={sub.nq}",
+                    lambda a=sub, u=U, b=pt: build_stencil(a, dens, u, b,
+                                                           3).S,
+                    lambda a=sub, u=U, b=pt: build_stencil_ref(a, dens, u,
+                                                               b, 3).S,
+                    tol, 3, 1, rec["tangent_stencil"],
+                    work=(nbytes(U, *args[:1], *args[2:]) + S_bytes,
+                          14580.0 * sub.nel * sub.nq, U.dtype))
+        e0 += pt.nel
+
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        c = cpl.astype(dt)
+        U = U64.to(dt)
+        es = U.element_size()
+        tol = TOL["f64"] if dt == torch.float64 else TOL["f32"]
+        tabs = [t for sd in (c.side_a, c.side_b)
+                for t in (sd.R0, sd.R1, sd.qp.DF)]
+        conns = [c.side_a.conn, c.side_b.conn]
+        # K6 reads U at the support (m values, gathered through both
+        # sides' conn), the side tables and wq, and writes all of r; it
+        # moves about 1 MB (launch-bound); operations: the jets and the
+        # contraction, 2 x 2 x 27 x 3 multiply-adds per point
+        compare(f"K6 shell_iface_residual {tag} nq={nq}",
+                lambda c=c, u=U: c.residual(u),
+                lambda c=c, u=U: iform_residual_ref(c, u), tol, 50, 3,
+                rec["shell_iface_residual"],
+                match="shell_iface_residual_kernel",
+                work=(m * es + U.numel() * es
+                      + nbytes(c.wq, *conns, *tabs), 648.0 * nq, dt))
+        # K7 reads the support's values, pos_a/pos_b, the side tables and
+        # wq (not conn) and writes K [m, m] (zeroed first); operations:
+        # 54 x 54 entries of 9 products with the rows per point
+        us = U[il]
+        compare(f"K7 shell_iface_tangent {tag} nq={nq} m={m}",
+                lambda c=c, us=us: c.tangent_block_cuda(us, pos_a, pos_b,
+                                                        c.params),
+                lambda c=c, us=us: iform_tangent_block_ref(
+                    c, us, pos_a, pos_b, c.params),
+                tol, 20, 2, rec["shell_iface_tangent"],
+                match="shell_iface_tangent_kernel",
+                work=(nbytes(us, pos_a, pos_b, c.wq, *tabs) + m * m * es,
+                      54.0 * 54 * 36 * nq, dt))
+
+    # K5 on the fine operator's interface block in both types; the
+    # library yardstick is torch.mv on the same block (the product alone)
+    op32 = ns._build(ns.asm_b32, U64.float())
+    op64 = ns._build(ns.asm_b64, U64)
+    g = torch.Generator().manual_seed(3)
+    for tag, op, dt in (("f64", op64, torch.float64),
+                        ("f32", op32, torch.float32)):
+        B = op.ifaces[0].K
+        v = torch.randn(ns.spline.ndof, generator=g,
+                        dtype=torch.float64).to(B.device, dt)
+        base = torch.randn(ns.spline.ndof, generator=g,
+                           dtype=torch.float64).to(B.device, dt)
+        mk = ns.mask64.to(dt)
+        buf_k, buf_t = torch.empty_like(base), torch.empty_like(base)
+        tol = TOL["f64"] if dt == torch.float64 else 1e-6
+        # reads B, idx, mask and v at the support, reads and writes out
+        # there; 2 m^2 operations
+        compare(f"K5 iface_block {tag} m={m}",
+                lambda B=B, v=v, b=base, o=buf_k, mk=mk: iface_block_apply(
+                    B, idx, v, o.copy_(b), mk, 1.0),
+                lambda B=B, v=v, b=base, o=buf_t, mk=mk:
+                iface_block_apply_ref(B, idx, v, o.copy_(b), mk, 1.0),
+                tol, 200, 20, rec["iface_block"], match="iface_block_kernel",
+                work=(nbytes(B, idx) + 5 * m * B.element_size(),
+                      2.0 * m * m, dt))
+        vs = v[il]
+        rec["iface_block"][-1]["library_ms"] = cuda_ms(
+            lambda B=B, vs=vs: torch.mv(B, vs), 200)
+        say(f"    library yardstick torch.mv(K, v[idx]) {tag}: "
+            f"{rec['iface_block'][-1]['library_ms']:.4f} ms")
+
+    # K3 reading and writing each patch in place, every mode, f32 (the
+    # V-cycle) and f64 (the polish operator), at the operators' own
+    # diagonals
+    for tag, op, mk, tol in (("f32", op32, ns.mask32, TOL["f32"]),
+                             ("f64", op64, ns.mask64, TOL["f64"])):
+        x, b = (torch.randn(op.ndof, generator=g, dtype=torch.float64)
+                .to(mk.device, mk.dtype) for _ in range(2))
+        dinv = 1.0 / (mk * op.diagonal() + (1.0 - mk))
+        for p, st in enumerate(op.sts):
+            for mode in ("apply", "residual", "jacobi"):
+                kw = dict(mask=mk, b=b, dinv=dinv, omega=0.7, mode=mode,
+                          base=op.doffsets[p], fstride=op.doffsets[-1])
+                oa, ob = torch.zeros_like(x), torch.zeros_like(x)
+                compare(f"K3 stencil_apply {mode} {tag} patch {'AB'[p]} "
+                        f"grid={st.grid_shape}",
+                        lambda s=st, kw=kw, o=oa, x=x: stencil_apply(
+                            s, x, out=o, **kw),
+                        lambda s=st, kw=kw, o=ob, x=x: stencil_apply_ref(
+                            s, x, out=o, **kw),
+                        tol, 10, 3, rec["stencil_apply"])
+
+
+def two_patch_main_path(ns, cpl, sizes, setup_s):
+    """The best of 3 warm f32 steps, then the full solve with every launch
+    count reset just before it and read just after: its diagnostics and
+    launch counts."""
+    from tigar_tpu_torch.ops import cuda_ext
+    ndof = ns.spline.ndof
+    U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
+    U1, rn, _ = ns.step(U0)                    # warm-up
+    float(rn)
+    best = best_of_3(lambda: ns.step(U1))
+    say(f"two-patch production (f32) newton step: best of 3 "
+        f"{best * 1e3:.3f} ms ({ndof / best:.4e} DoF/s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usol, rel64, nsteps, dU_rel = ns.solve(rtol=1e-10, log=say,
+                                           start_polish=True)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = cuda_ext.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"two-patch full solve (start_polish, as the bench's penalty "
+        f"point): {t_solve:.3f} s, {nsteps} steps, f64 rel "
+        f"|r| = {rel64:.3e}, |dU|/|U| = {dU_rel:.3e}; interface jump_norm "
+        f"{float(cpl.jump_norm(Usol)):.4e}, rotation_jump_norm "
+        f"{float(cpl.rotation_jump_norm(Usol)):.4e}; peak device memory "
+        f"{peak_gb:.3f} GiB (setup {setup_s:.2f} s, ndof={ndof}, levels "
+        f"{sizes})")
+    say(f"two-patch main-path kernel launches: {launches}")
+    if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
+        raise SystemExit("two-patch solution is not finite or has the wrong "
+                         "shape")
+    need = ("shell_residual", "tangent_stencil", "stencil_apply",
+            "iface_block", "shell_iface_residual", "shell_iface_tangent")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"two-patch main path never launched {missing}")
+    return Usol, rel64, dU_rel, launches
+
+
+def two_patch_certificate(ns, cpl, Usol, rel64, dU_rel):
+    """The final f64 residual within 3x of the CPU plain versions (K1's
+    and the interface residual's) on the same state, and rel64 <= 1e-6
+    with |dU|/|U| <= 1e-10, or rel64 <= 1e-10."""
+    from tigar_tpu_torch import convert
+    from tigar_tpu_torch.coupling import (ShellInterfaceCoupling,
+                                          _shell_penalty_density)
+    from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
+    r0_64 = ns.true_rel_residual(torch.zeros_like(Usol))
+    Uc = Usol.cpu()
+    cpl_cpu = convert.interface_from_numpy(
+        convert.interface_arrays(cpl), ShellInterfaceCoupling,
+        _shell_penalty_density, ns.spline.ndof, device="cpu")
+    r_cpu = ns.mask64.cpu() * (residual_vector_adjoint_ref(
+        ns.asm64.to("cpu"), ns.adjoint, Uc) + cpl_cpu.residual(Uc))
+    cpu_rel = float(torch.linalg.norm(r_cpu)) / r0_64
+    agree = max(rel64, cpu_rel) <= 3.0 * max(min(rel64, cpu_rel), 1e-300)
+    ok = agree and ((rel64 <= TP_FLOOR_REL and dU_rel <= 1e-10)
+                    or rel64 <= 1e-10)
+    say(f"two-patch floor certificate: rel64 {rel64:.3e}, CPU plain f64 "
+        f"rel {cpu_rel:.3e} (within 3x: {agree}), |dU|/|U| {dU_rel:.3e}, "
+        f"floor_rel {TP_FLOOR_REL:g}: certified={ok}")
+    if not ok:
+        raise SystemExit("two-patch floor certificate FAILED")
+
+
+def two_patch_reference(device):
+    """tests/test_newton_mp.py's size and options, solved on the card and
+    through the plain versions on the CPU."""
+    (ns_g, _, _), (ns_c, _, _) = (build_two_patch(d, TP_REF["nel"],
+                                                  bench=False)
+                                  for d in (device, "cpu"))
+    Ug, relg, itg, _ = ns_g.solve(rtol=1e-10, max_iters=25)
+    Uc, relc, itc, _ = ns_c.solve(rtol=1e-10, max_iters=25)
+    err = float(torch.linalg.norm(Ug.cpu() - Uc) / torch.linalg.norm(Uc))
+    say(f"two-patch small-input reference ({ns_g.spline.ndof} DoFs): card "
+        f"{itg} steps rel {relg:.3e}, CPU plain {itc} steps rel "
+        f"{relc:.3e}, |U_card - U_cpu| / |U_cpu| {err:.3e}")
+    if not (err <= 1e-7 and abs(itg - itc) <= 1):
+        raise SystemExit("two-patch small-input reference FAILED")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -593,7 +936,7 @@ def main():
 
     cuda_ext.load()
     say(f"kernel build: {cuda_ext.build_seconds:.1f} s "
-        f"(4 .cu + bindings.cpp, sm_90a)")
+        f"(6 .cu + bindings.cpp, sm_90a)")
 
     t0 = time.time()
     ns, mg_sizes = build_solver(NEL, device)
@@ -605,9 +948,8 @@ def main():
     rec = kernel_phases(ns)
     rec["sumfac_apply"] = sumfac_phases(device)
 
-    # -- the shell main path, with every launch count reset -----------------
-    torch.cuda.reset_peak_memory_stats()
-    cuda_ext.reset_counts()
+    # -- the shell main path: warm steps, then the solve with every launch
+    # count reset just before it and read just after -----------------------
     U0 = torch.zeros(ndof, dtype=torch.float64, device=device)
     U1, rn, _ = ns.step(U0)                    # warm-up
     float(rn)
@@ -615,6 +957,9 @@ def main():
     say(f"production newton step: best of 3 {best * 1e3:.3f} ms "
         f"({ndof / best:.4e} DoF/s)")
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.reset_counts()
     t0 = time.perf_counter()
     Usol, rel64, nsteps, dU_rel = ns.solve(rtol=1e-10, log=say)
     torch.cuda.synchronize()
@@ -649,6 +994,25 @@ def main():
 
     # -- the Poisson main path, with every launch count reset ---------------
     pb, _, err96, launches["sumfac_apply"] = poisson_main_path(device)
+    by_path = {"shell": {k: launches[k] for k in shell_kernels},
+               "poisson": {"sumfac_apply": launches["sumfac_apply"]}}
+
+    # -- the two-patch path: kernels, then the main path with reset counts --
+    t0 = time.time()
+    ns_tp, cpl, sizes = build_two_patch(device)
+    torch.cuda.synchronize()
+    setup_tp = time.time() - t0
+    say(f"two-patch setup: {setup_tp:.2f} s; ndof={ns_tp.spline.ndof}, "
+        f"levels={sizes}, pd={cpl.penalty:g}, pr={cpl.penalty_rot:g}")
+    iface_kernel_phases(ns_tp, cpl, rec)
+    Utp, rel_tp, dU_tp, l_tp = two_patch_main_path(ns_tp, cpl, sizes,
+                                                   setup_tp)
+    two_patch_certificate(ns_tp, cpl, Utp, rel_tp, dU_tp)
+    tp_kernels = ("iface_block", "shell_iface_residual",
+                  "shell_iface_tangent")
+    by_path["two_patch"] = {k: l_tp[k] for k in shell_kernels + tp_kernels}
+    for k in tp_kernels:
+        launches[k] = l_tp[k]
 
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
@@ -657,6 +1021,14 @@ def main():
         f"{best_polish * 1e3:.3f} ms")
     profile_steps(ns, U1, {"production step": best,
                            "polish step": best_polish})
+    tp_step = best_of_3(lambda: ns_tp.step(Utp))
+    tp_polish = best_of_3(lambda: ns_tp.polish_step(Utp))
+    say(f"two-patch steps at the solution: production (f32) best of 3 "
+        f"{tp_step * 1e3:.3f} ms, polish (frozen operators) "
+        f"{tp_polish * 1e3:.3f} ms")
+    say("two-patch profile:")
+    profile_steps(ns_tp, Utp, {"production step": tp_step,
+                               "polish step": tp_polish})
 
     # -- small-input reference: card against the CPU twins ----------------
     ns_g, _ = build_solver(8, device, cg_iters=40)
@@ -669,6 +1041,8 @@ def main():
     if not (err <= 1e-8 and relg <= 1e-9 and abs(itg - itc) <= 1):
         raise SystemExit("small-input reference FAILED")
 
+    two_patch_reference(device)
+
     poisson_checks(device, pb, err96)
 
     src = {"shell_residual": ("tigar_tpu_torch/csrc/shell_residual.cu",
@@ -678,13 +1052,21 @@ def main():
            "stencil_apply": ("tigar_tpu_torch/csrc/stencil_apply.cu",
                              "tigar_tpu/ops/stencil.py:73"),
            "sumfac_apply": ("tigar_tpu_torch/csrc/sumfac_apply.cu",
-                            "tigar_tpu/ops/sumfac.py:208")}
+                            "tigar_tpu/ops/sumfac.py:208"),
+           "iface_block": ("tigar_tpu_torch/csrc/iface_block.cu",
+                           "tigar_tpu/solvers/newton_stencil_mp.py:85"),
+           "shell_iface_residual": (
+               "tigar_tpu_torch/csrc/shell_interface.cu",
+               "tigar_tpu/interface.py:711"),
+           "shell_iface_tangent": ("tigar_tpu_torch/csrc/shell_interface.cu",
+                                   "tigar_tpu/interface.py:684")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
     pick = {"shell_residual": "f32", "tangent_stencil": f"nq={ns.asm_b32.nq}",
             "stencil_apply": "jacobi f32 fine",
-            "sumfac_apply": f"f32 {NEL3}^3"}
+            "sumfac_apply": f"f32 {NEL3}^3", "iface_block": "f32",
+            "shell_iface_residual": "f32", "shell_iface_tangent": "f32"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]
@@ -694,7 +1076,10 @@ def main():
             "max_abs_err": max(p["abs"] for p in phases),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None, "device_ms": timed["dev_ms"]})
+            "library_ms": timed.get("library_ms"),
+            "device_ms": timed["dev_ms"],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()
+                                 if name in c}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

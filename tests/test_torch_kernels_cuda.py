@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels of tigar_tpu_torch against their plain PyTorch
 twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
-small 2D/3D sum-factorized operators).  Every test skips without a CUDA
-device; run them on a GPU machine with
+small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
+element range and K5-K7 on the small two-patch plate and the three-patch
+L of the CPU tests).  Every test skips without a CUDA device; run them on
+a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Tolerances (relative to the largest entry of the twin's result): f64
 1e-12; f32 1e-5, and 1e-4 on tangent stencils (f32 atomics add in a
 nondeterministic order, and the stencil entries sum 4-36 element
-contributions of mixed sign).
+contributions of mixed sign); 1e-6 on the f32 interface block apply (no
+atomics, one dot product of m terms per row).
 """
 
 import numpy as np
@@ -203,3 +206,158 @@ def test_sumfac_kernel_refuses_what_it_cannot_take(cuda):
     data.degrees = (4, 4, 4)
     with pytest.raises(ValueError):
         sumfac.sumfac_apply(data, W, 1.0, 0.0)
+
+
+# -- the two-patch path: K3 patch mode, per-patch K2, K5, K6, K7 --------------
+
+MP_PD, MP_PR = 1e2 * E_mod * h_th * 8, 1e2 * E_mod * h_th ** 3 * 8
+
+
+def _two_patch(cuda, dims=(4, 4, 6)):
+    from torch_parity import ALL_SIDES, shell_coupling, two_patch
+    sp = two_patch("torch", *dims, device=cuda, clamps=ALL_SIDES)
+    return sp, shell_coupling("torch", sp, MP_PD, MP_PR)
+
+
+def _mp_solver(cuda):
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        MultiPatchStencilNewton)
+    (sp, cp), (sc, cc) = _two_patch(cuda, (8, 8, 12)), _two_patch(cuda)
+    return MultiPatchStencilNewton(sp, DENSITY, cp, mg_splines=[sc],
+                                   mg_couplings=[cc], cg_iters=15,
+                                   polish_cg_iters=20, build_quad_degree=2,
+                                   rebuild_rel=0.1)
+
+
+@pytest.mark.parametrize("what", ["residual", "tangent_block"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_shell_interface_kernels(cuda, what, dtype, tol):
+    from tigar_tpu_torch.interface import (iform_residual_ref,
+                                           iform_tangent_block_ref)
+    sp, cp = _two_patch(cuda)
+    cp = cp.astype(dtype)
+    U = _state(sp, seed=7, amp=0.01).to(dtype)
+    name = {"residual": "shell_iface_residual",
+            "tangent_block": "shell_iface_tangent"}[what]
+    n0 = cuda_ext.counts()[name]
+    if what == "residual":
+        y_k, y_t = cp.residual(U), iform_residual_ref(cp, U)
+    else:
+        idx, pa, pb = cp.support_positions()
+        y_k = cp.tangent_block(U)[1]
+        y_t = iform_tangent_block_ref(cp, U[idx.long()], pa, pb, cp.params)
+    torch.cuda.synchronize()
+    assert cuda_ext.counts()[name] == n0 + 1
+    assert y_k.dtype == dtype and y_k.is_cuda
+    assert _rel(y_k, y_t) <= tol
+
+
+def _iface_blocks(cuda, dtype, nblocks):
+    """Dense blocks of one (two-patch) or two interfaces (the L, whose
+    supports share corner DoFs) at a seeded state."""
+    from torch_parity import l_shell, shell_coupling
+    if nblocks == 1:
+        sp, cp = _two_patch(cuda)
+        cps = [cp]
+    else:
+        sp = l_shell("torch", ((4, 6), (5, 7), (6, 4)), device=cuda)
+        cps = [shell_coupling("torch", sp, MP_PD, MP_PR, w) for w in (0, 1)]
+    U = _state(sp, seed=8, amp=0.01)
+    blocks = []
+    for c in cps:
+        idx = c.support_positions()[0]
+        blocks.append((c.tangent_block(U)[1].to(dtype), idx))
+    return sp, blocks
+
+
+@pytest.mark.parametrize("nblocks", [1, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_iface_block_kernel(cuda, nblocks, dtype, tol):
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        iface_block_apply, iface_block_apply_ref)
+    sp, blocks = _iface_blocks(cuda, dtype, nblocks)
+    g = torch.Generator().manual_seed(9)
+    v, out = (torch.randn(sp.ndof, generator=g, dtype=torch.float64)
+              .to(cuda, dtype) for _ in range(2))
+    mask = sp.mask.to(dtype)
+    for m in (None, mask):
+        for alpha in (1.0, -1.0):
+            y_k, y_t = out.clone(), out.clone()
+            for B, idx in blocks:
+                iface_block_apply(B, idx, v, y_k, m, alpha)
+                iface_block_apply_ref(B, idx, v, y_t, m, alpha)
+            torch.cuda.synchronize()
+            assert _rel(y_k - out, y_t - out) <= tol
+
+
+@pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_stencil_apply_patch_mode(cuda, mode, dtype, tol):
+    """K3 reading and writing one patch in place of the field-major
+    multi-patch vector, against the copy-out/copy-back plain version."""
+    ns = _mp_solver(cuda)
+    op = ns._build(ns.asm_b32, _state(ns.spline, seed=10,
+                                      amp=0.01).float()).astype(dtype)
+    g = torch.Generator().manual_seed(11)
+    x, b, dinv = (torch.randn(op.ndof, generator=g, dtype=torch.float64)
+                  .to(cuda, dtype) for _ in range(3))
+    mask = ns.mask64.to(dtype)
+    for p, st in enumerate(op.sts):
+        kw = dict(mask=mask, b=b, dinv=dinv, omega=0.7, mode=mode,
+                  base=op.doffsets[p], fstride=op.doffsets[-1])
+        y_k = stencil_apply(st, x, out=torch.zeros_like(x), **kw)
+        y_t = stencil_apply_ref(st, x, out=torch.zeros_like(x), **kw)
+        assert _rel(y_k, y_t) <= tol
+    with pytest.raises(ValueError):
+        stencil_apply(op.sts[0], x, mode="apply", out=x,
+                      base=0, fstride=op.doffsets[-1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+def test_tangent_stencil_patch_range(cuda, dtype, tol):
+    """K2 on one patch's element range of the concatenated assembler."""
+    sp, _ = _two_patch(cuda, (8, 8, 12))
+    asm = sp._assembler("dx", quad_degree=2).astype(dtype)
+    U = _state(sp, seed=12, amp=0.01).to(dtype)
+    e0 = 0
+    for pt in sp.space.fields[0].patches:
+        sub = asm.elements(e0, e0 + pt.nel)
+        S_k = build_stencil(sub, DENSITY, U, pt, 3).S
+        S_t = build_stencil_ref(sub, DENSITY, U, pt, 3).S
+        assert _rel(S_k, S_t) <= tol
+        e0 += pt.nel
+
+
+def test_multipatch_path_runs_through_kernels(cuda):
+    """One production step and one polish step of the two-patch solver
+    launch K1, K2, K3, K5, K6 and K7."""
+    ns = _mp_solver(cuda)
+    cuda_ext.reset_counts()
+    U = torch.zeros(ns.spline.ndof, dtype=torch.float64, device=cuda)
+    U1, rn, _ = ns.step(U)
+    U2, rn64, _ = ns.polish_step(U1, rebuild=True)
+    torch.cuda.synchronize()
+    c = cuda_ext.counts()
+    for k in ("shell_residual", "tangent_stencil", "stencil_apply",
+              "iface_block", "shell_iface_residual", "shell_iface_tangent"):
+        assert c[k] > 0, (k, c)
+    assert np.isfinite(float(rn)) and np.isfinite(float(rn64))
+
+
+def test_interface_kernels_refuse_what_they_cannot_take(cuda):
+    from tigar_tpu_torch.coupling import PenaltyInterfaceCoupling
+    sp, cp = _two_patch(cuda)
+    U = torch.zeros(sp.ndof, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        cp.residual(U.float())                  # f64 form, f32 state
+    with pytest.raises(ValueError):
+        cp.residual(U[:-1])
+    pen = PenaltyInterfaceCoupling(sp, 0, (0, 1), 1, (0, 0), penalty=1e3)
+    with pytest.raises(NotImplementedError, match="_penalty_density"):
+        pen.residual(U)
+    with pytest.raises(NotImplementedError, match="_penalty_density"):
+        pen.tangent_block(U)

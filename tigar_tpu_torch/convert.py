@@ -12,9 +12,12 @@ no jax import here) — into a dict of numpy arrays:
 
 ``assembler_from_numpy(arrays, device, dtype)`` builds this package's
 ``DomainAssembler`` from such a dict, and ``stencil_from_numpy`` does the
-same for stencils.  Tests use them to feed identical inputs to the JAX
-functions and to this package's kernels and twins, independent of either
-package's own preprocessing.
+same for stencils.  ``mp_operator_arrays``/``mp_operator_from_numpy`` carry
+a multi-patch operator (per-patch stencils, interface blocks idx, K, Sinv)
+and ``interface_arrays``/``interface_from_numpy`` an interface form (both
+sides' SideData, wq, nu, w_param, surfJ, params).  Tests use them to feed
+identical inputs to the JAX functions and to this package's kernels and
+twins, independent of either package's own preprocessing.
 """
 
 from __future__ import annotations
@@ -96,3 +99,93 @@ def stencil_from_numpy(S, grid_shape, degrees, nf, device="cuda",
     return StencilOperator(torch.as_tensor(np.array(S), dtype=dtype,
                                            device=resolve_device(device)),
                            grid_shape, degrees, nf)
+
+
+def mp_operator_arrays(op):
+    """numpy arrays of a multi-patch stencil operator (this package's or
+    tigar_tpu's): per patch S, grid_shape, degrees; per interface block
+    idx, K and Sinv (None when absent); the layout offsets."""
+    return {
+        "S": [_np(st.S) for st in op.sts],
+        "grid_shape": [tuple(st.grid_shape) for st in op.sts],
+        "degrees": [tuple(st.degrees) for st in op.sts],
+        "idx": [_np(b.idx).astype(INDEX_TYPE) for b in op.ifaces],
+        "K": [_np(b.K) for b in op.ifaces],
+        "Sinv": [None if b.Sinv is None else _np(b.Sinv)
+                 for b in op.ifaces],
+        "foffsets": tuple(op.foffsets), "doffsets": tuple(op.doffsets),
+        "nf": int(op.nf)}
+
+
+def mp_operator_from_numpy(arrays, device="cuda", dtype=torch.float64):
+    """This package's MultiPatchStencilOperator from ``mp_operator_arrays``
+    output (S and K in ``dtype``; Sinv keeps its arrays' type, the
+    preconditioner's float32 when it comes from an operator build)."""
+    from .solvers.newton_stencil_mp import IfaceBlock, MultiPatchStencilOperator
+    device = resolve_device(device)
+    nf = arrays["nf"]
+    sts = [stencil_from_numpy(S, g, d, nf, device, dtype)
+           for S, g, d in zip(arrays["S"], arrays["grid_shape"],
+                              arrays["degrees"])]
+    blocks = [IfaceBlock(
+        torch.as_tensor(np.array(i, dtype=INDEX_TYPE), device=device),
+        torch.as_tensor(np.array(K), dtype=dtype, device=device),
+        None if Si is None else torch.as_tensor(np.array(Si),
+                                                device=device))
+        for i, K, Si in zip(arrays["idx"], arrays["K"], arrays["Sinv"])]
+    return MultiPatchStencilOperator(sts, blocks, arrays["foffsets"],
+                                     arrays["doffsets"], nf)
+
+
+_SIDE_QP = ("xi", "x", "DF", "d2F", "d3F", "w0", "w1", "w2", "w3", "pinv",
+            "nu_flat")
+
+
+def interface_arrays(form):
+    """numpy arrays of an interface form (this package's or tigar_tpu's):
+    per side conn, R0..R3 and the SideQP leaves (None stays None), plus
+    wq, nu, w_param, surfJ, params, fields and the jet order."""
+    def side(sd):
+        out = {k: (None if getattr(sd, k) is None else _np(getattr(sd, k)))
+               for k in ("conn", "R0", "R1", "R2", "R3")}
+        out["conn"] = out["conn"].astype(INDEX_TYPE)
+        out["qp"] = {k: (None if getattr(sd.qp, k) is None
+                         else _np(getattr(sd.qp, k))) for k in _SIDE_QP}
+        return out
+    return {"side_a": side(form.side_a), "side_b": side(form.side_b),
+            "wq": _np(form.wq), "nu": _np(form.nu),
+            "w_param": _np(form.w_param), "surfJ": _np(form.surfJ),
+            "params": {k: float(v) for k, v in form.params.items()},
+            "fields": list(form.fields), "nders": int(form._nders)}
+
+
+def interface_from_numpy(arrays, cls, density, ndof, device="cuda",
+                         dtype=torch.float64):
+    """An interface form of class ``cls`` (an InterfaceForm subclass, e.g.
+    coupling.ShellInterfaceCoupling) with ``density`` over ``ndof`` DoFs
+    from ``interface_arrays`` output, without a spline."""
+    from .interface import SideData, SideQP
+    device = resolve_device(device)
+
+    def t(a, dt=dtype):
+        return None if a is None else torch.as_tensor(np.array(a), dtype=dt,
+                                                      device=device)
+
+    def side(d):
+        qp = SideQP(**{k: t(d["qp"][k]) for k in _SIDE_QP})
+        return SideData(conn=t(d["conn"], torch.int32), R0=t(d["R0"]),
+                        R1=t(d["R1"]), R2=t(d["R2"]), R3=t(d["R3"]), qp=qp)
+
+    form = cls.__new__(cls)
+    form.density = density
+    form.ndof = int(ndof)
+    form.params = dict(arrays["params"])
+    form.fields = list(arrays["fields"])
+    form._nders = int(arrays["nders"])
+    form.side_a, form.side_b = side(arrays["side_a"]), side(arrays["side_b"])
+    for k in ("wq", "nu", "w_param", "surfJ"):
+        setattr(form, k, t(arrays[k]))
+    form._support = None
+    form._pos = None
+    return form
+

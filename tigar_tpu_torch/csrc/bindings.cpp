@@ -153,21 +153,32 @@ torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
                             std::optional<torch::Tensor> mask,
                             std::optional<torch::Tensor> b,
                             std::optional<torch::Tensor> dinv, double omega,
-                            int64_t mode) {
+                            int64_t mode, std::optional<torch::Tensor> out,
+                            int64_t base, int64_t fstride) {
   const auto dt = x.scalar_type();
   check_float(dt);
   TORCH_CHECK(S.dim() == 6, "S must be [3, 3, 5, 5, ny, nx]");
-  const int64_t ny = S.size(4), nx = S.size(5);
+  const int64_t ny = S.size(4), nx = S.size(5), n = ny * nx;
   check(S, "S", dt, {3, 3, 5, 5, ny, nx});
-  check(x, "x", dt, {3 * ny * nx});
-  if (mask) check(*mask, "mask", dt, {3 * ny * nx});
-  if (b) check(*b, "b", dt, {3 * ny * nx});
-  if (dinv) check(*dinv, "dinv", dt, {3 * ny * nx});
+  // every vector holds DoF (f, i) of the grid at base + f * fstride + i
+  TORCH_CHECK(x.dim() == 1, "x must be a vector");
+  const int64_t len = x.size(0);
+  TORCH_CHECK(base >= 0 && fstride >= n && base + 2 * fstride + n <= len,
+              "patch (base ", base, ", field stride ", fstride, ") of ", n,
+              " points does not fit ", len, " DoFs");
+  TORCH_CHECK(out || (base == 0 && fstride == n && len == 3 * n),
+              "without out, x must be exactly the stencil's 3 fields");
+  TORCH_CHECK(len < (int64_t(1) << 31), "too many DoFs");
+  check(x, "x", dt, {len});
+  if (mask) check(*mask, "mask", dt, {len});
+  if (b) check(*b, "b", dt, {len});
+  if (dinv) check(*dinv, "dinv", dt, {len});
+  if (out) check(*out, "out", dt, {len});
   TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
   TORCH_CHECK(mode == 0 || b, "mode ", mode, " needs b");
   TORCH_CHECK(mode != 2 || dinv, "mode 2 needs dinv");
   const c10::cuda::CUDAGuard guard(x.device());
-  auto y = torch::empty_like(x);
+  auto y = out ? *out : torch::empty_like(x);
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
   cudaError_t err;
   if (dt == torch::kFloat) {
@@ -175,13 +186,13 @@ torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
     err = tigar::stencil_apply_launch<T>(
         ny, nx, ptr<T>(S), ptr<T>(x), mask ? ptr<T>(*mask) : nullptr,
         b ? ptr<T>(*b) : nullptr, dinv ? ptr<T>(*dinv) : nullptr, omega,
-        (int)mode, y.data_ptr<T>(), stream);
+        (int)mode, (int)base, (int)fstride, y.data_ptr<T>(), stream);
   } else {
     using T = double;
     err = tigar::stencil_apply_launch<T>(
         ny, nx, ptr<T>(S), ptr<T>(x), mask ? ptr<T>(*mask) : nullptr,
         b ? ptr<T>(*b) : nullptr, dinv ? ptr<T>(*dinv) : nullptr, omega,
-        (int)mode, y.data_ptr<T>(), stream);
+        (int)mode, (int)base, (int)fstride, y.data_ptr<T>(), stream);
   }
   check_launch(err, "stencil_apply");
   return y;
@@ -283,7 +294,135 @@ torch::Tensor sumfac_apply(torch::Tensor W, std::vector<torch::Tensor> B,
   return r;
 }
 
+void iface_block(torch::Tensor B, torch::Tensor idx,
+                 std::optional<torch::Tensor> mask, torch::Tensor v,
+                 double alpha, torch::Tensor out) {
+  const auto dt = v.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(B.dim() == 2 && B.size(0) == B.size(1),
+              "B must be a square [m, m] block");
+  const int64_t m = B.size(0), n = v.size(0);
+  TORCH_CHECK(v.dim() == 1 && n < (int64_t(1) << 31), "v must be a vector");
+  check(B, "B", dt, {m, m});
+  check(idx, "idx", torch::kInt, {m});
+  check(v, "v", dt, {n});
+  check(out, "out", dt, {n});
+  if (mask) check(*mask, "mask", dt, {n});
+  TORCH_CHECK(out.data_ptr() != v.data_ptr(), "out must not alias v");
+  TORCH_CHECK(alpha == 1.0 || alpha == -1.0, "alpha must be +1 or -1");
+  TORCH_CHECK(m * (int64_t)out.element_size() <= 227 * 1024,
+              "an interface block of ", m, " DoFs exceeds shared memory");
+  const c10::cuda::CUDAGuard guard(v.device());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::iface_block_launch<T>(
+        (int)m, ptr<T>(B), idx.data_ptr<int>(), mask ? ptr<T>(*mask) : nullptr,
+        ptr<T>(v), alpha, out.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::iface_block_launch<T>(
+        (int)m, ptr<T>(B), idx.data_ptr<int>(), mask ? ptr<T>(*mask) : nullptr,
+        ptr<T>(v), alpha, out.data_ptr<T>(), stream);
+  }
+  check_launch(err, "iface_block");
+}
+
+namespace {
+
+// one interface side's tensors, checked: conn [nq, 3, 9] int32, R0
+// [nq, 3, 9], R1 [nq, 3, 9, 2], DF [nq, 3, 2]
+template <typename T>
+tigar::IfaceSide<T> iface_side(const std::vector<torch::Tensor>& s,
+                               torch::ScalarType dt, int64_t nq) {
+  TORCH_CHECK(s.size() == 4, "a side is (conn, R0, R1, DF)");
+  check(s[0], "conn", torch::kInt, {nq, 3, 9});
+  check(s[1], "R0", dt, {nq, 3, 9});
+  check(s[2], "R1", dt, {nq, 3, 9, 2});
+  check(s[3], "DF", dt, {nq, 3, 2});
+  return {s[0].data_ptr<int>(), ptr<T>(s[1]), ptr<T>(s[2]), ptr<T>(s[3])};
+}
+
+}  // namespace
+
+torch::Tensor shell_iface_residual(std::vector<torch::Tensor> side_a,
+                                   std::vector<torch::Tensor> side_b,
+                                   torch::Tensor wq, torch::Tensor U,
+                                   std::vector<double> consts) {
+  const auto dt = U.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(wq.dim() == 1 && U.dim() == 1, "wq and U must be vectors");
+  const int64_t nq = wq.size(0), ndof = U.size(0);
+  check(wq, "wq", dt, {nq});
+  check(U, "U", dt, {ndof});
+  TORCH_CHECK(consts.size() == 3, "shell_iface_residual takes 3 constants");
+  TORCH_CHECK(ndof < (int64_t(1) << 31), "too many DoFs");
+  const c10::cuda::CUDAGuard guard(U.device());
+  auto r = torch::zeros({ndof}, U.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::shell_iface_residual_launch<T>(
+        (int)nq, iface_side<T>(side_a, dt, nq), iface_side<T>(side_b, dt, nq),
+        ptr<T>(wq), ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::shell_iface_residual_launch<T>(
+        (int)nq, iface_side<T>(side_a, dt, nq), iface_side<T>(side_b, dt, nq),
+        ptr<T>(wq), ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
+  }
+  check_launch(err, "shell_iface_residual");
+  return r;
+}
+
+torch::Tensor shell_iface_tangent(std::vector<torch::Tensor> side_a,
+                                  std::vector<torch::Tensor> side_b,
+                                  torch::Tensor pos_a, torch::Tensor pos_b,
+                                  torch::Tensor wq, torch::Tensor u_sub,
+                                  std::vector<double> consts) {
+  const auto dt = u_sub.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(wq.dim() == 1 && u_sub.dim() == 1, "wq and u_sub must be "
+              "vectors");
+  const int64_t nq = wq.size(0), m = u_sub.size(0);
+  check(wq, "wq", dt, {nq});
+  check(u_sub, "u_sub", dt, {m});
+  check(pos_a, "pos_a", torch::kInt, {nq, 3, 9});
+  check(pos_b, "pos_b", torch::kInt, {nq, 3, 9});
+  TORCH_CHECK(consts.size() == 3, "shell_iface_tangent takes 3 constants");
+  TORCH_CHECK(m < (int64_t(1) << 31), "support too large");
+  const c10::cuda::CUDAGuard guard(u_sub.device());
+  auto K = torch::zeros({m, m}, u_sub.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::shell_iface_tangent_launch<T>(
+        (int)nq, (int)m, iface_side<T>(side_a, dt, nq),
+        iface_side<T>(side_b, dt, nq), pos_a.data_ptr<int>(),
+        pos_b.data_ptr<int>(), ptr<T>(wq), ptr<T>(u_sub), consts.data(),
+        K.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::shell_iface_tangent_launch<T>(
+        (int)nq, (int)m, iface_side<T>(side_a, dt, nq),
+        iface_side<T>(side_b, dt, nq), pos_a.data_ptr<int>(),
+        pos_b.data_ptr<int>(), ptr<T>(wq), ptr<T>(u_sub), consts.data(),
+        K.data_ptr<T>(), stream);
+  }
+  check_launch(err, "shell_iface_tangent");
+  return K;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("iface_block", &iface_block,
+        "K5: dense interface block apply (in place on out)");
+  m.def("shell_iface_residual", &shell_iface_residual,
+        "K6: shell-penalty interface residual");
+  m.def("shell_iface_tangent", &shell_iface_tangent,
+        "K7: shell-penalty interface tangent block");
   m.def("sumfac_apply", &sumfac_apply,
         "K4: sum-factorized stiffness/mass apply");
   m.def("shell_residual", &shell_residual, "K1: SVK shell residual");

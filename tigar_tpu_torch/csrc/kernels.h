@@ -31,11 +31,13 @@ cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
 
 // K3: stencil apply.  mode 0: y = A x; 1: y = b - A x;
 // 2: y = x + (omega dinv) (b - A x); A is masked when mask != nullptr.
+// Every vector holds DoF (f, i) of the ny x nx grid at
+// base + f * fstride + i (base 0, fstride ny * nx for a single patch).
 template <typename T>
 cudaError_t stencil_apply_launch(int ny, int nx, const T* S, const T* x,
                                  const T* mask, const T* b, const T* dinv,
-                                 double omega, int mode, T* y,
-                                 cudaStream_t stream);
+                                 double omega, int mode, int base,
+                                 int fstride, T* y, cudaStream_t stream);
 
 // K4: sum-factorized r = ck K (mask W) + cm M (mask W), then, when mask is
 // given, r = mask r + (1 - mask) W.  Per direction d (0 first): B, D
@@ -61,5 +63,40 @@ struct SumfacArgs {
 
 template <typename T>
 cudaError_t sumfac_apply_launch(const SumfacArgs<T>& a, cudaStream_t stream);
+
+// K5: out[idx[i]] += alpha m_i sum_j B[i][j] m_j v[idx[j]] for one dense
+// interface block B [m][m] over the sorted, unique support idx [m];
+// m_i = mask[idx[i]] (1 when mask == nullptr).
+template <typename T>
+cudaError_t iface_block_launch(int m, const T* B, const int* idx,
+                               const T* mask, const T* v, double alpha, T* out,
+                               cudaStream_t stream);
+
+// One side of a shell interface at nq points: conn [nq][3][9] global DoF
+// indices, rows R0 [nq][3][9] and R1 [nq][3][9][2], DF [nq][3][2].
+template <typename T>
+struct IfaceSide {
+  const int* conn;
+  const T* R0;
+  const T* R1;
+  const T* DF;
+};
+
+// K6: shell-penalty interface residual, r += dE/dU (r zero-initialised).
+// consts = {penalty_disp, penalty_rot, orientation sign}.
+template <typename T>
+cudaError_t shell_iface_residual_launch(int nq, IfaceSide<T> sa,
+                                        IfaceSide<T> sb, const T* wq,
+                                        const T* U, const double* consts,
+                                        T* r, cudaStream_t stream);
+
+// K7: shell-penalty interface tangent block K [m][m] (zero-initialised) at
+// u_sub = U[idx]; pos_a/pos_b [nq][3][9] are the columns' positions in idx.
+template <typename T>
+cudaError_t shell_iface_tangent_launch(int nq, int m, IfaceSide<T> sa,
+                                       IfaceSide<T> sb, const int* pos_a,
+                                       const int* pos_b, const T* wq,
+                                       const T* u_sub, const double* consts,
+                                       T* K, cudaStream_t stream);
 
 }  // namespace tigar

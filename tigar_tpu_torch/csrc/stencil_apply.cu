@@ -7,7 +7,10 @@
 // over a zero-padded copy of the grid.
 //
 // S [3][3][5][5][ny][nx] couples output (f_out, I) to input
-// (f_in, I + offset - 2); x, mask, b, dinv, y are [3][ny][nx].  One thread
+// (f_in, I + offset - 2); x, mask, b, dinv, y hold DoF (f, I) at
+// base + f * fstride + I: [3][ny][nx] for a single patch (base 0, fstride
+// ny * nx), or one patch of a multi-patch vector, read and written in
+// place (the JAX package copies each patch out and back).  One thread
 // per grid point computes all 3 output fields from the 3 x 25 input
 // window (zero outside the grid: no padded copy), then one of
 //   mode 0: y = A x
@@ -29,7 +32,8 @@ __global__ void __launch_bounds__(256)
 stencil_apply_kernel(int ny, int nx, const T* __restrict__ S,
                      const T* __restrict__ x, const T* __restrict__ mask,
                      const T* __restrict__ b, const T* __restrict__ dinv,
-                     T omega, int mode, T* __restrict__ y) {
+                     T omega, int mode, int base, int fstride,
+                     T* __restrict__ y) {
   const int n = ny * nx;
   const int pt = blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= n) return;
@@ -46,8 +50,9 @@ stencil_apply_kernel(int ny, int nx, const T* __restrict__ S,
       const int j = jy * nx + jx;
 #pragma unroll
       for (int fi = 0; fi < 3; ++fi) {
-        T xv = x[fi * n + j];
-        if (mask != nullptr) xv *= mask[fi * n + j];
+        const int k = base + fi * fstride + j;
+        T xv = x[k];
+        if (mask != nullptr) xv *= mask[k];
 #pragma unroll
         for (int fo = 0; fo < 3; ++fo)
           acc[fo] += S[((size_t)((fo * 3 + fi) * 5 + oy) * 5 + ox) * n + pt] * xv;
@@ -56,7 +61,7 @@ stencil_apply_kernel(int ny, int nx, const T* __restrict__ S,
   }
 #pragma unroll
   for (int fo = 0; fo < 3; ++fo) {
-    const int i = fo * n + pt;
+    const int i = base + fo * fstride + pt;
     T Ax = acc[fo];
     if (mask != nullptr) Ax = mask[i] * Ax + (T(1) - mask[i]) * x[i];
     if (mode == 0) {
@@ -72,23 +77,23 @@ stencil_apply_kernel(int ny, int nx, const T* __restrict__ S,
 template <typename T>
 cudaError_t stencil_apply_launch(int ny, int nx, const T* S, const T* x,
                                  const T* mask, const T* b, const T* dinv,
-                                 double omega, int mode, T* y,
-                                 cudaStream_t stream) {
+                                 double omega, int mode, int base,
+                                 int fstride, T* y, cudaStream_t stream) {
   const int n = ny * nx;
   if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const int threads = 256;
   stencil_apply_kernel<T><<<(n + threads - 1) / threads, threads, 0,
                             stream>>>(ny, nx, S, x, mask, b, dinv, T(omega),
-                                      mode, y);
+                                      mode, base, fstride, y);
   return cudaGetLastError();
 }
 
 template cudaError_t stencil_apply_launch<float>(
     int, int, const float*, const float*, const float*, const float*,
-    const float*, double, int, float*, cudaStream_t);
+    const float*, double, int, int, int, float*, cudaStream_t);
 template cudaError_t stencil_apply_launch<double>(
     int, int, const double*, const double*, const double*, const double*,
-    const double*, double, int, double*, cudaStream_t);
+    const double*, double, int, int, int, double*, cudaStream_t);
 
 }  // namespace tigar

@@ -94,6 +94,29 @@ class TensorBSplineBasis(ScalarBasis):
         return tabulate_tensor_bspline(self.kvs, npts_per_dir, nders,
                                        rule=rule)
 
+    def evaluate(self, coeffs, xi):
+        """Evaluate the scalar field with coefficients ``coeffs`` [ncp] (or
+        [ncp, m]) at parametric points ``xi`` [n, dim] (host numpy)."""
+        from ..ops.basis import eval_basis
+        coeffs = np.asarray(coeffs)
+        xi = np.atleast_2d(np.asarray(xi, dtype=np.float64))
+        n = xi.shape[0]
+        conn = vals = None
+        stride = 1
+        for d, kv in enumerate(self.kvs):
+            nodes, ders = eval_basis(kv, xi[:, d], 0)
+            if conn is None:
+                conn, vals = nodes, ders[:, 0, :]
+            else:
+                conn = (conn[:, :, None] + stride * nodes[:, None, :]
+                        ).reshape(n, -1)
+                vals = (vals[:, :, None] * ders[:, 0, None, :]).reshape(n, -1)
+            stride *= kv.ncp
+        ce = coeffs[conn]                  # [n, nen] or [n, nen, m]
+        if ce.ndim == 3:
+            return np.einsum("na,nam->nm", vals, ce)
+        return np.einsum("na,na->n", vals, ce)
+
     # -- DoF geometry ----------------------------------------------------------
 
     def greville_points(self):

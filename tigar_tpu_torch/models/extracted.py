@@ -95,3 +95,21 @@ class ExtractedSpline:
         for hook in self._ctx_hooks:
             hook(domain, asm)
         return asm
+
+    def evaluate(self, U, xi, rationalize=True, **kwargs):
+        """Evaluate the solution at parametric points ``xi`` [n, dim] (host
+        numpy): [n] for a scalar space, else [n, nfields].  With
+        ``rationalize``, divides by the control weight function.  Extra
+        kwargs go to the basis (``patch=`` for multi-patch)."""
+        if isinstance(U, torch.Tensor):
+            U = U.detach().cpu().numpy()
+        U = np.asarray(U)
+        xi = np.atleast_2d(np.asarray(xi, dtype=float))
+        vals = [self.space.fields[f].evaluate(
+                    U[self.space.field_slice(f)], xi, **kwargs)
+                for f in range(self.space.nfields)]
+        out = np.stack(vals, axis=-1)
+        if rationalize:
+            w = self.control_basis.evaluate(self.bnet[:, -1], xi, **kwargs)
+            out = out / w[:, None]
+        return out[:, 0] if self.space.nfields == 1 else out

@@ -117,6 +117,16 @@ class DomainAssembler:
         mixed-precision fast path)."""
         return self._map_tensors(lambda x: x.to(dtype))
 
+    def elements(self, e0, e1):
+        """View of the element range [e0, e1) (a patch of a multi-patch
+        batch): every per-element tensor sliced along its leading axis,
+        connectivity still in global numbering; no copies."""
+        obj = self._map_tensors(lambda x: x[e0:e1])
+        obj.conns = [c[e0:e1] for c in self.conns]
+        obj.cat_conn = self.cat_conn[e0:e1]
+        obj._cat_conn_long = self._cat_conn_long[e0:e1]
+        return obj
+
     def to(self, device):
         """Copy with all tensors on ``device``."""
         return self._map_tensors(lambda x: x.to(device))

@@ -96,3 +96,17 @@ def bspline_basis_ders(ghost_knots, n_ghost, p, u, span, nders):
         ders[:, k, :] *= fac
         fac *= p - k
     return ders
+
+
+def eval_basis(kv, u, nders=0):
+    """Evaluate the basis functions of ``KnotVector`` kv at parameters u.
+
+    Returns (nodes, ders): nodes [n, p+1] global function indices (wrapping
+    for periodic splines), ders [n, nders+1, p+1].
+    """
+    u = np.atleast_1d(np.asarray(u, dtype=np.float64))
+    span = kv.knot_span(u)
+    ders = bspline_basis_ders(kv.ghost_knots, kv.n_ghost, kv.p, u, span, nders)
+    nodes = span[:, None] - kv.p + np.arange(kv.p + 1)[None, :]
+    nodes = np.mod(nodes, kv.ncp)
+    return nodes.astype(np.int64), ders

@@ -1,9 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources live in ``tigar_tpu_torch/csrc``: four ``.cu`` files with
+The sources live in ``tigar_tpu_torch/csrc``: six ``.cu`` files with
 plain C++ launchers (no PyTorch headers, so nvcc compiles them in seconds)
 and one binding file, ``bindings.cpp``, the only one that includes
-``torch/extension.h``.  ``load()`` compiles all five with
+``torch/extension.h``.  ``load()`` compiles all seven with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` on first use, into
 ``build/tigar_kernels/`` under the repository root, and caches the module
 for the process.  Nothing is built at import time.
@@ -18,7 +18,8 @@ import os
 import time
 
 KERNELS = ("shell_residual", "tangent_stencil", "stencil_apply",
-           "sumfac_apply")
+           "sumfac_apply", "iface_block", "shell_iface_residual",
+           "shell_iface_tangent")
 
 _launches = {k: 0 for k in KERNELS}
 _ext = None
@@ -27,7 +28,8 @@ build_seconds = None
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("bindings.cpp", "shell_residual.cu", "tangent_stencil.cu",
-           "stencil_apply.cu", "sumfac_apply.cu")
+           "stencil_apply.cu", "sumfac_apply.cu", "iface_block.cu",
+           "shell_interface.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "tigar_kernels")
 

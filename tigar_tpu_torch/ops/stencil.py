@@ -57,6 +57,12 @@ class StencilOperator:
     def __call__(self, U):
         return stencil_apply(self, U)
 
+    def apply(self, x, mask=None, b=None, dinv=None, omega=0.0,
+              mode="apply"):
+        """The level action of the multigrid solvers (``stencil_apply``):
+        the masked operator, its residual or a fused Jacobi sweep."""
+        return stencil_apply(self, x, mask, b, dinv, omega, mode)
+
     def astype(self, dtype):
         """Same stencil with cast values (the f64 arithmetic of the mixed
         polish solve over an f32-assembled operator)."""
@@ -73,7 +79,7 @@ class StencilOperator:
 
 
 def stencil_apply(st, x, mask=None, b=None, dinv=None, omega=0.0,
-                  mode="apply"):
+                  mode="apply", out=None, base=0, fstride=None):
     """Stencil action in one of three modes (A = the masked operator
     mask*S(mask*x) + (1-mask)*x when ``mask`` is given, else S):
 
@@ -81,10 +87,18 @@ def stencil_apply(st, x, mask=None, b=None, dinv=None, omega=0.0,
       "residual" : b - A x
       "jacobi"   : x + (omega * dinv) * (b - A x)
 
+    Patch mode (``fstride`` given): x, mask, b, dinv and ``out`` are
+    vectors of a larger field-major layout in which DoF (f, i) of this
+    stencil's grid sits at ``base + f * fstride + i`` (one patch of a
+    multi-patch space); the result is written into ``out`` at those
+    positions only, and ``out`` is returned.
+
     CUDA tensors run kernel K3; CPU tensors run ``stencil_apply_ref``."""
     if x.is_cuda:
-        return stencil_apply_cuda(st, x, mask, b, dinv, omega, mode)
-    return stencil_apply_ref(st, x, mask, b, dinv, omega, mode)
+        return stencil_apply_cuda(st, x, mask, b, dinv, omega, mode, out,
+                                  base, fstride)
+    return stencil_apply_ref(st, x, mask, b, dinv, omega, mode, out, base,
+                             fstride)
 
 
 def _plain_apply(st, U):
@@ -102,10 +116,28 @@ def _plain_apply(st, U):
     return out.reshape(-1)
 
 
+def _patch_rows(st, base, fstride):
+    """(field-major) positions of the stencil's DoFs in a larger layout."""
+    n = int(np.prod(st.grid_shape))
+    return [slice(base + f * fstride, base + f * fstride + n)
+            for f in range(st.nf)]
+
+
 def stencil_apply_ref(st, x, mask=None, b=None, dinv=None, omega=0.0,
-                      mode="apply"):
+                      mode="apply", out=None, base=0, fstride=None):
     """Plain PyTorch twin of kernel K3 (zero padding at the boundary, the
-    ``jnp.pad`` of the JAX stencil apply)."""
+    ``jnp.pad`` of the JAX stencil apply).  Patch mode copies the patch
+    out and back, as the JAX package's multi-patch operator does."""
+    if fstride is not None:
+        rows = _patch_rows(st, base, fstride)
+
+        def take(v):
+            return None if v is None else torch.cat([v[r] for r in rows])
+        y = stencil_apply_ref(st, take(x), take(mask), take(b), take(dinv),
+                              omega, mode)
+        for f, r in enumerate(rows):
+            out[r] = y.view(st.nf, -1)[f]
+        return out
     if mask is None:
         Ax = _plain_apply(st, x)
     else:
@@ -120,9 +152,11 @@ def stencil_apply_ref(st, x, mask=None, b=None, dinv=None, omega=0.0,
 
 
 def stencil_apply_cuda(st, x, mask=None, b=None, dinv=None, omega=0.0,
-                       mode="apply"):
+                       mode="apply", out=None, base=0, fstride=None):
     """Kernel K3: one thread per grid point, all nf output fields, the
-    (2p+1)^2 x nf x nf window read straight from S (nf=3, p=2, 2D)."""
+    (2p+1)^2 x nf x nf window read straight from S (nf=3, p=2, 2D); in
+    patch mode it reads and writes the patch in place through ``base`` and
+    the field stride."""
     if mode not in MODES:
         raise ValueError(f"unknown stencil mode {mode!r}")
     S = st.S
@@ -134,19 +168,34 @@ def stencil_apply_cuda(st, x, mask=None, b=None, dinv=None, omega=0.0,
         raise ValueError(f"stencil shape {tuple(S.shape)}")
     if x.dtype != S.dtype or x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"x {x.dtype} vs stencil {S.dtype}")
+    n = int(np.prod(st.grid_shape))
+    if fstride is None:
+        if out is not None or base != 0:
+            raise ValueError("out and base are patch-mode arguments")
+        length, base, fstride = st.ndof, 0, n
+    else:
+        if out is None:
+            raise ValueError("patch mode writes into out")
+        length = x.shape[0]
+        if base < 0 or fstride < n or base + 2 * fstride + n > length:
+            raise ValueError(f"patch (base {base}, field stride {fstride}) "
+                             f"of {n} points does not fit {length} DoFs")
     need = {"apply": (), "residual": ("b",), "jacobi": ("b", "dinv")}[mode]
-    vecs = {"x": x, "mask": mask, "b": b, "dinv": dinv}
+    vecs = {"x": x, "mask": mask, "b": b, "dinv": dinv, "out": out}
     for k, v in vecs.items():
         if v is None:
             if k in need:
                 raise ValueError(f"mode {mode!r} needs {k}")
             continue
-        if v.shape != (st.ndof,) or v.dtype != x.dtype or not v.is_cuda:
+        if v.shape != (length,) or v.dtype != x.dtype or not v.is_cuda \
+                or not v.is_contiguous():
             raise ValueError(f"{k}: shape {tuple(v.shape)} dtype {v.dtype}")
+        if k != "out" and out is not None and \
+                v.data_ptr() == out.data_ptr():
+            raise ValueError(f"out must not alias {k}")
     ext = cuda_ext.load()
-    c = (lambda v: None if v is None else v.contiguous())
-    y = ext.stencil_apply(S.contiguous(), x.contiguous(), c(mask), c(b),
-                          c(dinv), float(omega), MODES[mode])
+    y = ext.stencil_apply(S.contiguous(), x, mask, b, dinv, float(omega),
+                          MODES[mode], out, int(base), int(fstride))
     cuda_ext.count("stencil_apply")
     return y
 

@@ -27,15 +27,15 @@ import numpy as np
 import torch
 
 from .multigrid import insertion_matrix_1d
-from ..ops.stencil import (build_stencil, stencil_apply, stencil_to_dense)
+from ..ops.stencil import build_stencil, stencil_to_dense
 from ..ops.assembly import apply_bc_matrix
 
 F32 = torch.float32
 
 
 def _masked_apply(st, mask, W):
-    """BC'd stencil action: zeroRowsColumns semantics, unit diagonal."""
-    return stencil_apply(st, W, mask=mask)
+    """BC'd level action: zeroRowsColumns semantics, unit diagonal."""
+    return st.apply(W, mask=mask)
 
 
 def _equal_order_basis(spline):
@@ -81,10 +81,14 @@ def _safe_div(num, den):
 
 
 def _vcycle_fn(nlev, n_smooth, omega):
-    """The V-cycle over stencil level operators (shared by the f32 and
-    the mixed solvers)."""
+    """The V-cycle over level operators (shared by the f32 and the mixed
+    solvers).  A level operator is a StencilOperator or a multi-patch
+    operator; both expose ``apply(x, mask, b, dinv, omega, mode)``, and an
+    operator with dense interface inverses adds its multiplicative Schwarz
+    correction (``schwarz``) after the Jacobi sweeps."""
 
     def smooth(sts, masks, dinvs, l, b, x=None):
+        op = sts[l]
         if x is None:
             # first sweep from a zero guess: x = omega D^-1 b exactly
             x = (omega * dinvs[l]) * b
@@ -92,8 +96,11 @@ def _vcycle_fn(nlev, n_smooth, omega):
         else:
             sweeps = n_smooth
         for _ in range(sweeps):
-            x = stencil_apply(sts[l], x, mask=masks[l], b=b, dinv=dinvs[l],
-                              omega=omega, mode="jacobi")
+            x = op.apply(x, mask=masks[l], b=b, dinv=dinvs[l], omega=omega,
+                         mode="jacobi")
+        if getattr(op, "has_schwarz", False):
+            x = x + op.schwarz(op.apply(x, mask=masks[l], b=b,
+                                        mode="residual"), masks[l])
         return x
 
     def vcycle(sts, masks, dinvs, Ps, coarse_inv, l, b):
@@ -101,7 +108,7 @@ def _vcycle_fn(nlev, n_smooth, omega):
             # full-f32 coarse product (TF32 is off: tigar_tpu_torch.config)
             return torch.matmul(coarse_inv, b)
         x = smooth(sts, masks, dinvs, l, b)
-        r = stencil_apply(sts[l], x, mask=masks[l], b=b, mode="residual")
+        r = sts[l].apply(x, mask=masks[l], b=b, mode="residual")
         rc = masks[l + 1] * Ps[l].down(r)
         ec = vcycle(sts, masks, dinvs, Ps, coarse_inv, l + 1, rc)
         x = x + masks[l] * Ps[l].up(ec)
@@ -270,6 +277,9 @@ class StencilNewton:
         self._coarse_masks = tuple(masks)
         self._coarse_inv = dense_inv
         self._st64 = None   # frozen f64 stencil for the polish phase
+        # fine-level Jacobi damping scale (the multi-patch solver sets it
+        # per f32 tangent build; 1.0 leaves single-patch solves unchanged)
+        self._fine_omega_scale = 1.0
 
     # -- device programs -------------------------------------------------------
 
@@ -284,7 +294,10 @@ class StencilNewton:
     def _fine_dinv(self, st32):
         d = st32.diagonal()
         d = self.mask32 * d + (1.0 - self.mask32)
-        return torch.where(d != 0.0, 1.0 / d, torch.ones_like(d))
+        dinv = torch.where(d != 0.0, 1.0 / d, torch.ones_like(d))
+        if self._fine_omega_scale != 1.0:
+            dinv = self._fine_omega_scale * dinv
+        return dinv
 
     def _inner_solve(self, st32, b32):
         sts = (st32,) + self._coarse_sts
@@ -340,7 +353,7 @@ class StencilNewton:
         return float(torch.linalg.norm(self._res(self.asm64, self.mask64, U)))
 
     def solve(self, U0=None, rtol=1e-10, switch_rel=3e-5, max_iters=40,
-              log=None, overshoot_reject=1e3):
+              log=None, overshoot_reject=1e3, start_polish=False):
         """Full mixed-precision Newton solve: f32 production steps until
         the relative residual reaches ``switch_rel`` or stops halving, then
         f64-residual polish steps until ``rtol`` or the f64 evaluation
@@ -348,13 +361,14 @@ class StencilNewton:
         (U, rel_f64, n_steps, dU_rel).  The control flow (one-step-late
         f32 readings, overshoot rollback, polish backtracking, the switch
         at the first stall) is that of tigar_tpu's StencilNewton.solve;
-        see its docstring."""
+        see its docstring.  ``start_polish`` begins in the f64 polish
+        phase (no f32 production steps)."""
         U = (torch.zeros(self.spline.ndof, dtype=self.spline.dtype,
                          device=self.mask64.device)
              if U0 is None else U0)
         r0 = None
         prev_rel = np.inf
-        phase64 = False
+        phase64 = bool(start_polish)
         polish_its = 0
         stalls = 0
         dU_rel = np.inf
