@@ -17,7 +17,7 @@ f64 CG, 20 iterations, preconditioned by an f32 V-cycle over 96/48/24/12/6
 with Jacobi V(2,2) smoothing, every operator apply sum-factorized.
 
 Phases, each fatal on failure (nothing is caught):
-  1. build the seven CUDA kernels from tigar_tpu_torch/csrc;
+  1. build the nine CUDA kernels from tigar_tpu_torch/csrc;
   2. per kernel, at the main paths' shapes and seeded inputs: kernel
      against its plain PyTorch twin on the card (max relative error;
      tolerance f64 1e-12, f32 1e-4 on stencils and 1e-5 elsewhere), both
@@ -58,6 +58,22 @@ Phases, each fatal on failure (nothing is caught):
      |dU|/|U| <= 1e-10, or rel64 <= 1e-10); the small-input reference at
      the size of tests/test_newton_mp.py (card against CPU plain versions:
      steps within 1, U within 1e-7).
+  9. the two-patch shell with the consistent (symmetric Nitsche) coupling,
+     bench.py's default two-patch point (BENCH_TP_COUPLING=nitsche): the
+     same splines and solver options, EnergyNitscheCoupling on the SVK
+     energy per level with beta_d = 10 (D/h_el^3 + E h/h_el), beta_r =
+     10 D/h_el.  K8/K9 against their plain versions (f32 and f64, on the
+     interface of every level: 768, 384 and 192 points), bounded by the
+     operations their function needs (tigar_tpu_torch/csrc/
+     nitsche_opcount.cpp, built with the host compiler); K9's device
+     time is its CUDA-event time (a torch.profiler session over K9 ends
+     the process); the best of 3 warm f32
+     steps; the full solve with the f32 phase first (as the bench) with
+     every launch count reset just before it and read just after; the
+     floor certificate with the bench's Nitsche guard floor_rel = 1e-8;
+     the small-input reference on the Nitsche plate of
+     tests/test_newton_mp.py:132 (card against CPU plain versions: steps
+     within 1, U within 1e-7).
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -71,7 +87,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
@@ -218,7 +235,7 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
     """Kernel against twin on the same inputs: errors, times, the gate.
     ``match`` names the kernel for the profiler's device time per launch
     (taken later by ``kernel_device_times``); ``work`` = (bytes, flops,
-    dtype) gives its bound."""
+    dtype) gives its bound; ``twin_reps`` 0 leaves the twin untimed."""
     yk = kernel()
     yt = twin()
     torch.cuda.synchronize()
@@ -229,9 +246,10 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
     abs_err = float((yk - yt).abs().max())
     rel = abs_err / float(yt.abs().max())
     ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(twin, twin_reps)
+    plain_ms = cuda_ms(twin, twin_reps) if twin_reps else None
+    twin_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
     say(f"phase {name}: max rel err {rel:.3e} (tol {tol:g}), max abs err "
-        f"{abs_err:.3e}, kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        f"{abs_err:.3e}, kernel {ms:.4f} ms, twin {twin_txt}")
     if not rel <= tol:
         raise SystemExit(f"phase {name} FAILED: rel err {rel:.3e} > {tol:g}")
     entry = dict(name=name, rel=rel, abs=abs_err, ms=ms, plain_ms=plain_ms)
@@ -446,17 +464,19 @@ def best_of_3(fn):
 
 
 def profile_steps(ns, U, step_s):
-    """torch.profiler trace of one production step and one polish step at
-    state U; prints device time by kernel and the device's busy share of
-    the un-profiled step wall time ``step_s``.  Only device-side events
+    """torch.profiler trace of the steps named in ``step_s`` (a production
+    step, a polish step) at state U; prints device time by kernel and the
+    device's busy share of the un-profiled step wall time ``step_s``.
+    Only device-side events
     (kernels, copies, memsets) are summed: the CPU op rows of key_averages
     carry the device time of the kernels they launch, which appear as rows
     of their own (the rule of the profiler's own table footer)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
-    runs = (("production step", lambda: ns.step(U)),
-            ("polish step", lambda: ns.polish_step(U)))
-    for label, fn in runs:
+    runs = {"production step": lambda: ns.step(U),
+            "polish step": lambda: ns.polish_step(U)}
+    for label in step_s:
+        fn = runs[label]
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -598,7 +618,32 @@ def profile_poisson(pb):
 
 TP_NEL = 64                       # bench.py's BENCH_TP_NEL default
 TP_FLOOR_REL = 1e-6               # bench.py's penalty-mode floor_rel
+TP_NITSCHE_FLOOR_REL = 1e-8       # bench.py's Nitsche-mode floor_rel
 TP_REF = dict(E=1.0e7, h=0.05, q=0.05, nel=8)   # tests/test_newton_mp.py
+
+
+
+def nitsche_ops():
+    """Operations a point and side of K8/K9's function, from the host
+    counting program tigar_tpu_torch/csrc/nitsche_opcount.cpp, built here
+    with the host compiler: the reference geometry (geom), the jets
+    (jets), the reverse-mode gradient (grad) and the forward-over-reverse
+    Hessian and flux Jacobian (hess) of the side's flux pairing, and the
+    kernels' own first- and second-order flux passes (pass1, pass2).  The
+    program checks its derivatives against the kernels' passes and exits
+    1 if they disagree."""
+    src = os.path.join(ROOT, "tigar_tpu_torch", "csrc",
+                       "nitsche_opcount.cpp")
+    exe = os.path.join(ROOT, "build", "nitsche_opcount")
+    os.makedirs(os.path.dirname(exe), exist_ok=True)
+    subprocess.run([os.environ.get("CXX", "c++"), "-std=c++17", "-O1",
+                    "-o", exe, src], check=True)
+    out = subprocess.run([exe], capture_output=True, text=True,
+                         check=True).stdout
+    rep = json.loads(out.strip().splitlines()[-1])
+    say(f"Nitsche operation count a point and side (nitsche_opcount): "
+        f"{rep['per_side']}, derivative checks {rep['rel_err']}")
+    return rep["per_side"]
 
 
 def two_patch_spline(nx, nay, nby, device, bench=True):
@@ -642,10 +687,26 @@ def two_patch_spline(nx, nay, nby, device, bench=True):
         ExtractedSpline(sp, quad_degree=4, nders=2, device=device))
 
 
-def build_two_patch(device, nel=TP_NEL, bench=True):
-    """MultiPatchStencilNewton as bench._two_patch_point builds it in
-    penalty mode (``bench``), or at tests/test_newton_mp.py's size and
-    options: (solver, coupling, level sizes)."""
+def nitsche_coupling(sp, nx, E, h):
+    """bench._two_patch_point's consistent coupling on a level with nx
+    elements across: EnergyNitscheCoupling on the SVK energy, beta_d =
+    10 (D/h_el^3 + E h/h_el), beta_r = 10 D/h_el."""
+    from tigar_tpu_torch.interface import EnergyNitscheCoupling
+    from tigar_tpu_torch.models.shell import svk_shell_energy
+    D, h_el = E * h ** 3 / 12.0 / (1 - NU ** 2), 1.0 / nx
+    return EnergyNitscheCoupling(
+        sp, 0, (0, 1), 1, (0, 0), svk_shell_energy,
+        beta_d=10.0 * (D / h_el ** 3 + E * h / h_el), beta_r=10.0 * D / h_el,
+        w_order=2, params={"E": E, "nu": NU, "h": h})
+
+
+def build_two_patch(device, nel=TP_NEL, bench=True, coupling="penalty",
+                    splines=None):
+    """MultiPatchStencilNewton as bench._two_patch_point builds it
+    (``bench``), or at tests/test_newton_mp.py's size and options, with
+    the displacement + rotation penalty or the consistent Nitsche
+    ``coupling``; ``splines`` reuses the levels of an earlier build:
+    (solver, coupling, level sizes)."""
     from tigar_tpu_torch.coupling import ShellInterfaceCoupling
     from tigar_tpu_torch.models.shell import SVKShellAdjoint
     from tigar_tpu_torch.solvers.newton_stencil_mp import (
@@ -660,11 +721,15 @@ def build_two_patch(device, nel=TP_NEL, bench=True):
     else:
         sizes = [(2 * nel, 2 * nel, 2 * nel + 4), (nel, nel, nel + 2),
                  (nel // 2, nel // 2, nel // 2 + 1)]
-    splines, couplings = [], []
-    for nx, ay, by in sizes:
-        sp = two_patch_spline(nx, ay, by, device, bench)
+    if splines is None:
+        splines = [two_patch_spline(nx, ay, by, device, bench)
+                   for nx, ay, by in sizes]
+    couplings = []
+    for sp, (nx, ay, by) in zip(splines, sizes):
+        if coupling == "nitsche":
+            couplings.append(nitsche_coupling(sp, nx, E, h))
+            continue
         h_el = 1.0 / (nx if bench else nel)
-        splines.append(sp)
         couplings.append(ShellInterfaceCoupling(
             sp, 0, (0, 1), 1, (0, 0), penalty_disp=1e2 * E * h / h_el,
             penalty_rot=1e2 * E * h ** 3 / h_el))
@@ -876,46 +941,183 @@ def two_patch_main_path(ns, cpl, sizes, setup_s):
     return Usol, rel64, dU_rel, launches
 
 
-def two_patch_certificate(ns, cpl, Usol, rel64, dU_rel):
+def two_patch_certificate(ns, cpl, Usol, rel64, dU_rel,
+                          floor_rel=TP_FLOOR_REL, label="two-patch"):
     """The final f64 residual within 3x of the CPU plain versions (K1's
-    and the interface residual's) on the same state, and rel64 <= 1e-6
-    with |dU|/|U| <= 1e-10, or rel64 <= 1e-10."""
+    and the interface residual's, the form carried to the CPU with its
+    own density) on the same state, and rel64 <= floor_rel with
+    |dU|/|U| <= 1e-10, or rel64 <= 1e-10."""
     from tigar_tpu_torch import convert
-    from tigar_tpu_torch.coupling import (ShellInterfaceCoupling,
-                                          _shell_penalty_density)
     from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
     r0_64 = ns.true_rel_residual(torch.zeros_like(Usol))
     Uc = Usol.cpu()
     cpl_cpu = convert.interface_from_numpy(
-        convert.interface_arrays(cpl), ShellInterfaceCoupling,
-        _shell_penalty_density, ns.spline.ndof, device="cpu")
+        convert.interface_arrays(cpl), type(cpl), cpl.density,
+        ns.spline.ndof, device="cpu")
     r_cpu = ns.mask64.cpu() * (residual_vector_adjoint_ref(
         ns.asm64.to("cpu"), ns.adjoint, Uc) + cpl_cpu.residual(Uc))
     cpu_rel = float(torch.linalg.norm(r_cpu)) / r0_64
     agree = max(rel64, cpu_rel) <= 3.0 * max(min(rel64, cpu_rel), 1e-300)
-    ok = agree and ((rel64 <= TP_FLOOR_REL and dU_rel <= 1e-10)
+    ok = agree and ((rel64 <= floor_rel and dU_rel <= 1e-10)
                     or rel64 <= 1e-10)
-    say(f"two-patch floor certificate: rel64 {rel64:.3e}, CPU plain f64 "
+    say(f"{label} floor certificate: rel64 {rel64:.3e}, CPU plain f64 "
         f"rel {cpu_rel:.3e} (within 3x: {agree}), |dU|/|U| {dU_rel:.3e}, "
-        f"floor_rel {TP_FLOOR_REL:g}: certified={ok}")
+        f"floor_rel {floor_rel:g}: certified={ok}")
     if not ok:
-        raise SystemExit("two-patch floor certificate FAILED")
+        raise SystemExit(f"{label} floor certificate FAILED")
 
 
-def two_patch_reference(device):
-    """tests/test_newton_mp.py's size and options, solved on the card and
-    through the plain versions on the CPU."""
+def two_patch_reference(device, coupling="penalty"):
+    """tests/test_newton_mp.py's size and options (its penalty plate, or
+    its Nitsche plate of :132), solved on the card and through the plain
+    versions on the CPU."""
     (ns_g, _, _), (ns_c, _, _) = (build_two_patch(d, TP_REF["nel"],
-                                                  bench=False)
+                                                  bench=False,
+                                                  coupling=coupling)
                                   for d in (device, "cpu"))
     Ug, relg, itg, _ = ns_g.solve(rtol=1e-10, max_iters=25)
     Uc, relc, itc, _ = ns_c.solve(rtol=1e-10, max_iters=25)
     err = float(torch.linalg.norm(Ug.cpu() - Uc) / torch.linalg.norm(Uc))
-    say(f"two-patch small-input reference ({ns_g.spline.ndof} DoFs): card "
-        f"{itg} steps rel {relg:.3e}, CPU plain {itc} steps rel "
-        f"{relc:.3e}, |U_card - U_cpu| / |U_cpu| {err:.3e}")
+    say(f"two-patch {coupling} small-input reference ({ns_g.spline.ndof} "
+        f"DoFs): card {itg} steps rel {relg:.3e}, CPU plain {itc} steps "
+        f"rel {relc:.3e}, |U_card - U_cpu| / |U_cpu| {err:.3e}")
     if not (err <= 1e-7 and abs(itg - itc) <= 1):
-        raise SystemExit("two-patch small-input reference FAILED")
+        raise SystemExit(f"two-patch {coupling} small-input reference "
+                         "FAILED")
+
+
+def nitsche_kernel_phases(ns, rec):
+    """K8 and K9 against their plain versions, f64 and f32, at seeded
+    states, on the fine interface (768 points, timed) and on the
+    (32,64,66) and (16,32,33) levels' (384 and 192 points).  The bound
+    counts the operations the function needs (``nitsche_ops``), not the
+    kernels' own passes."""
+    from tigar_tpu_torch.interface import (iform_residual_ref,
+                                           iform_tangent_block_ref)
+    from tigar_tpu_torch.ops import cuda_ext
+    ops = nitsche_ops()
+    need8 = 2 * (ops["geom"] + ops["jets"] + ops["grad"])
+    need9 = 2 * (ops["geom"] + ops["jets"] + ops["hess"])
+    own8 = 2 * ops["geom"] + 54 * ops["pass1"]
+    own9 = own8 + 756 * ops["pass2"]
+    say(f"Nitsche operations a point: K8 needs {need8}, runs {own8} "
+        f"({own8 / need8:.1f}x); K9 needs {need9}, runs {own9} "
+        f"({own9 / need9:.1f}x)")
+    levels = [("fine", ns.couplings[0], mp_smooth_state(ns))]
+    for i, (sp, cl) in enumerate(zip(ns.mg_splines, ns.mg_couplings)):
+        g = torch.Generator().manual_seed(5 + i)
+        U = 0.01 * torch.randn(sp.ndof, generator=g, dtype=torch.float64)
+        levels.append((f"level {i + 1}", cl[0],
+                       sp.mask * U.to(ns.mask64.device)))
+    for name in ("nitsche_iface_residual", "nitsche_iface_tangent"):
+        rec.setdefault(name, [])
+    for level, cpl, U64 in levels:
+        idx, pos_a, pos_b = cpl.support_positions()
+        m, nq = idx.numel(), cpl.wq.numel()
+        say(f"Nitsche {level} interface: {nq} points, support m={m}")
+        for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            c = cpl.astype(dt)
+            U = U64.to(dt)
+            es = U.element_size()
+            tol = TOL[tag]
+            tabs = [t for sd in (c.side_a, c.side_b)
+                    for t in (sd.R0, sd.R1, sd.R2, sd.R3, sd.qp.DF,
+                              sd.qp.d2F, sd.qp.d3F, sd.qp.pinv,
+                              sd.qp.nu_flat)]
+            conns = [c.side_a.conn, c.side_b.conn]
+            timed = level == "fine"
+            # K8 reads U at the support (m values), the side tables, wq
+            # and surfJ, and writes all of r
+            compare(f"K8 nitsche_iface_residual {tag} nq={nq}",
+                    lambda c=c, u=U: c.residual(u),
+                    lambda c=c, u=U: iform_residual_ref(c, u), tol,
+                    20 if timed else 3, 1 if timed else 0,
+                    rec["nitsche_iface_residual"],
+                    match="nitsche_residual_kernel" if timed else None,
+                    work=(m * es + U.numel() * es
+                          + nbytes(c.wq, c.surfJ, *conns, *tabs),
+                          float(nq * need8), dt))
+            # K9 reads the support's values, pos_a/pos_b, the side tables
+            # (not conn), wq and surfJ, and writes K [m, m] (zeroed first)
+            us = U[idx.long()]
+            k9 = (lambda c=c, us=us: c.tangent_block_cuda(
+                us, pos_a, pos_b, c.params))
+            if timed and tag == "f64":
+                # the local memory the context reserves for K9 f64's stack
+                lim0 = cuda_ext.load().stack_limit()
+                free0, total = torch.cuda.mem_get_info()
+                out0 = total - free0 - torch.cuda.memory_reserved()
+                k9()
+                torch.cuda.synchronize()
+                free1, _ = torch.cuda.mem_get_info()
+                out1 = total - free1 - torch.cuda.memory_reserved()
+                say(f"K9 f64 first launch: stack limit {lim0} -> "
+                    f"{cuda_ext.load().stack_limit()} bytes a thread; "
+                    f"device memory outside torch's allocator "
+                    f"{out0 / 2 ** 30:.3f} -> {out1 / 2 ** 30:.3f} GiB")
+            compare(f"K9 nitsche_iface_tangent {tag} nq={nq} m={m}", k9,
+                    lambda c=c, us=us: iform_tangent_block_ref(
+                        c, us, pos_a, pos_b, c.params),
+                    tol, 10 if timed else 2, 1 if timed else 0,
+                    rec["nitsche_iface_tangent"],
+                    work=(nbytes(us, pos_a, pos_b, c.wq, c.surfJ, *tabs)
+                          + m * m * es, float(nq * need9), dt))
+            if timed:
+                # a torch.profiler session over K9 ends this process with
+                # a segmentation fault once K9 and its plain version have
+                # run here: its device time is the CUDA-event time (one
+                # launch of milliseconds a call)
+                p = rec["nitsche_iface_tangent"][-1]
+                p["dev_ms"] = p["ms"]
+                say(f"{p['name']}: device time per call (CUDA events, "
+                    f"not profiled) {p['ms']:.4f} ms")
+
+
+def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
+    """The best of 3 warm f32 steps, then the full solve with the f32
+    phase first (as bench.py's Nitsche point), every launch count reset
+    just before it and read just after."""
+    from tigar_tpu_torch.ops import cuda_ext
+    ndof = ns.spline.ndof
+    U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
+    U1, rn, _ = ns.step(U0)                    # warm-up
+    float(rn)
+    best = best_of_3(lambda: ns.step(U1))
+    say(f"two-patch Nitsche production (f32) newton step: best of 3 "
+        f"{best * 1e3:.3f} ms ({ndof / best:.4e} DoF/s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usol, rel64, nsteps, dU_rel = ns.solve(rtol=1e-10, log=say)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = cuda_ext.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    free, total = torch.cuda.mem_get_info()
+    outside = (total - free - torch.cuda.memory_reserved()) / 2 ** 30
+    say(f"two-patch Nitsche full solve (f32 phase first, as the bench): "
+        f"{t_solve:.3f} s, {nsteps} steps, f64 rel |r| = {rel64:.3e}, "
+        f"|dU|/|U| = {dU_rel:.3e}; interface jump_norm "
+        f"{float(cpl.jump_norm(Usol)):.4e}, grad_jump_norm "
+        f"{float(cpl.grad_jump_norm(Usol)):.4e}; peak device memory "
+        f"{peak_gb:.3f} GiB in torch's allocator, {outside:.3f} GiB outside "
+        f"it (context and the kernels' stack reservation, stack limit "
+        f"{cuda_ext.load().stack_limit()} bytes a thread) "
+        f"(setup {setup_s:.2f} s, ndof={ndof}, levels "
+        f"{sizes}, beta_d={cpl.params['beta_d']:g}, "
+        f"beta_r={cpl.params['beta_r']:g})")
+    say(f"two-patch Nitsche main-path kernel launches: {launches}")
+    if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
+        raise SystemExit("two-patch Nitsche solution is not finite or has "
+                         "the wrong shape")
+    need = ("shell_residual", "tangent_stencil", "stencil_apply",
+            "iface_block", "nitsche_iface_residual", "nitsche_iface_tangent")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"two-patch Nitsche main path never launched "
+                         f"{missing}")
+    return Usol, rel64, dU_rel, launches
 
 
 def main():
@@ -936,7 +1138,7 @@ def main():
 
     cuda_ext.load()
     say(f"kernel build: {cuda_ext.build_seconds:.1f} s "
-        f"(6 .cu + bindings.cpp, sm_90a)")
+        f"(7 .cu + bindings.cpp, sm_90a)")
 
     t0 = time.time()
     ns, mg_sizes = build_solver(NEL, device)
@@ -1014,6 +1216,28 @@ def main():
     for k in tp_kernels:
         launches[k] = l_tp[k]
 
+    # -- the two-patch Nitsche path (bench.py's default two-patch point) on
+    # the same splines: kernels, then the main path with reset counts ------
+    t0 = time.time()
+    ns_nit, cpl_nit, _ = build_two_patch(
+        device, coupling="nitsche",
+        splines=[ns_tp.spline] + list(ns_tp.mg_splines))
+    torch.cuda.synchronize()
+    setup_nit = time.time() - t0
+    say(f"two-patch Nitsche setup (splines shared): {setup_nit:.2f} s; "
+        f"beta_d={cpl_nit.params['beta_d']:g}, "
+        f"beta_r={cpl_nit.params['beta_r']:g}")
+    nitsche_kernel_phases(ns_nit, rec)
+    Unit, rel_nit, dU_nit, l_nit = two_patch_nitsche_main_path(
+        ns_nit, cpl_nit, sizes, setup_nit)
+    two_patch_certificate(ns_nit, cpl_nit, Unit, rel_nit, dU_nit,
+                          TP_NITSCHE_FLOOR_REL, "two-patch Nitsche")
+    nit_kernels = ("nitsche_iface_residual", "nitsche_iface_tangent")
+    by_path["two_patch_nitsche"] = {
+        k: l_nit[k] for k in shell_kernels + ("iface_block",) + nit_kernels}
+    for k in nit_kernels:
+        launches[k] = l_nit[k]
+
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
     best_polish = best_of_3(lambda: ns.polish_step(U1))
@@ -1029,6 +1253,19 @@ def main():
     say("two-patch profile:")
     profile_steps(ns_tp, Utp, {"production step": tp_step,
                                "polish step": tp_polish})
+    nit_step = best_of_3(lambda: ns_nit.step(Unit))
+    nit_polish = best_of_3(lambda: ns_nit.polish_step(Unit))
+    say(f"two-patch Nitsche steps at the solution: production (f32) best "
+        f"of 3 {nit_step * 1e3:.3f} ms, polish (frozen operators) "
+        f"{nit_polish * 1e3:.3f} ms")
+    # the production step builds K9 (kept out of profiler sessions, see
+    # nitsche_kernel_phases): its share is timed with CUDA events instead
+    k9_ms = cuda_ms(lambda: ns_nit._build(ns_nit.asm_b32, Unit.float()), 3)
+    say(f"two-patch Nitsche f32 operator build at the solution (K2 per "
+        f"patch, K9, Schwarz inverse, damping estimate): {k9_ms:.3f} ms of "
+        f"CUDA-event time")
+    say("two-patch Nitsche profile:")
+    profile_steps(ns_nit, Unit, {"polish step": nit_polish})
 
     # -- small-input reference: card against the CPU twins ----------------
     ns_g, _ = build_solver(8, device, cg_iters=40)
@@ -1042,6 +1279,7 @@ def main():
         raise SystemExit("small-input reference FAILED")
 
     two_patch_reference(device)
+    two_patch_reference(device, "nitsche")
 
     poisson_checks(device, pb, err96)
 
@@ -1059,14 +1297,20 @@ def main():
                "tigar_tpu_torch/csrc/shell_interface.cu",
                "tigar_tpu/interface.py:711"),
            "shell_iface_tangent": ("tigar_tpu_torch/csrc/shell_interface.cu",
-                                   "tigar_tpu/interface.py:684")}
+                                   "tigar_tpu/interface.py:684"),
+           "nitsche_iface_residual": ("tigar_tpu_torch/csrc/shell_nitsche.cu",
+                                      "tigar_tpu/interface.py:711"),
+           "nitsche_iface_tangent": ("tigar_tpu_torch/csrc/shell_nitsche.cu",
+                                     "tigar_tpu/interface.py:684")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
     pick = {"shell_residual": "f32", "tangent_stencil": f"nq={ns.asm_b32.nq}",
             "stencil_apply": "jacobi f32 fine",
             "sumfac_apply": f"f32 {NEL3}^3", "iface_block": "f32",
-            "shell_iface_residual": "f32", "shell_iface_tangent": "f32"}
+            "shell_iface_residual": "f32", "shell_iface_tangent": "f32",
+            "nitsche_iface_residual": f"f32 nq={cpl_nit.wq.numel()}",
+            "nitsche_iface_tangent": f"f32 nq={cpl_nit.wq.numel()}"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]
@@ -1077,7 +1321,7 @@ def main():
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed.get("library_ms"),
-            "device_ms": timed["dev_ms"],
+            "device_ms": timed.get("dev_ms"),
             "launches_by_path": {p: c[name] for p, c in by_path.items()
                                  if name in c}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of tigar_tpu_torch against their plain PyTorch
 twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
 small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
-element range and K5-K7 on the small two-patch plate and the three-patch
+element range and K5-K9 on the small two-patch plate and the three-patch
 L of the CPU tests).  Every test skips without a CUDA device; run them on
 a GPU machine with
 
@@ -361,3 +361,88 @@ def test_interface_kernels_refuse_what_they_cannot_take(cuda):
         pen.residual(U)
     with pytest.raises(NotImplementedError, match="_penalty_density"):
         pen.tangent_block(U)
+
+
+# -- the consistent (Nitsche) coupling: K8, K9 ---------------------------------
+
+
+def _nitsche(sp, nx, weights=(0.5, 0.5), energy=None, w_order=2):
+    """bench.py's Nitsche coupling of the SVK energy on a level with nx
+    elements across (``energy`` replaces the density)."""
+    from tigar_tpu_torch.interface import EnergyNitscheCoupling
+    from tigar_tpu_torch.models.shell import svk_shell_energy
+    D, h = E_mod * h_th ** 3 / 12.0 / (1 - nu ** 2), 1.0 / nx
+    return EnergyNitscheCoupling(
+        sp, 0, (0, 1), 1, (0, 0), energy or svk_shell_energy,
+        beta_d=10.0 * (D / h ** 3 + E_mod * h_th / h), beta_r=10.0 * D / h,
+        w_order=w_order, weights=weights,
+        params={"E": E_mod, "nu": nu, "h": h_th})
+
+
+@pytest.mark.parametrize("weights", [(0.5, 0.5), (1.0, 0.0)],
+                         ids=["symmetric", "one-sided"])
+@pytest.mark.parametrize("what", ["residual", "tangent_block"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_nitsche_interface_kernels(cuda, what, dtype, tol, weights):
+    """K8/K9 against the plain versions (torch.func grad / hessian of the
+    Nitsche density) at a seeded state of the small two-patch plate."""
+    from tigar_tpu_torch.interface import (iform_residual_ref,
+                                           iform_tangent_block_ref)
+    sp, _ = _two_patch(cuda)
+    cp = _nitsche(sp, 4, weights).astype(dtype)
+    U = _state(sp, seed=8, amp=0.01).to(dtype)
+    name = {"residual": "nitsche_iface_residual",
+            "tangent_block": "nitsche_iface_tangent"}[what]
+    n0 = cuda_ext.counts()[name]
+    if what == "residual":
+        y_k, y_t = cp.residual(U), iform_residual_ref(cp, U)
+    else:
+        idx, pa, pb = cp.support_positions()
+        y_k = cp.tangent_block(U)[1]
+        y_t = iform_tangent_block_ref(cp, U[idx.long()], pa, pb, cp.params)
+    torch.cuda.synchronize()
+    assert cuda_ext.counts()[name] == n0 + 1
+    assert y_k.dtype == dtype and y_k.is_cuda
+    assert _rel(y_k, y_t) <= tol
+
+
+def test_nitsche_path_runs_through_kernels(cuda):
+    """One production step and one polish step of the two-patch solver
+    with Nitsche couplings launch K1, K2, K3, K5, K8 and K9."""
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        MultiPatchStencilNewton)
+    (sp, _), (sc, _) = _two_patch(cuda, (8, 8, 12)), _two_patch(cuda)
+    ns = MultiPatchStencilNewton(sp, DENSITY, _nitsche(sp, 8),
+                                 mg_splines=[sc], mg_couplings=[
+                                     _nitsche(sc, 4)],
+                                 cg_iters=15, polish_cg_iters=20,
+                                 polish_tangent="f64", build_quad_degree=2,
+                                 rebuild_rel=0.1)
+    cuda_ext.reset_counts()
+    U = torch.zeros(sp.ndof, dtype=torch.float64, device=cuda)
+    U1, rn, _ = ns.step(U)
+    U2, rn64, _ = ns.polish_step(U1, rebuild=True)
+    torch.cuda.synchronize()
+    c = cuda_ext.counts()
+    for k in ("shell_residual", "tangent_stencil", "stencil_apply",
+              "iface_block", "nitsche_iface_residual",
+              "nitsche_iface_tangent"):
+        assert c[k] > 0, (k, c)
+    assert np.isfinite(float(rn)) and np.isfinite(float(rn64))
+
+
+def test_nitsche_kernels_refuse_other_densities(cuda):
+    """A Nitsche form whose density K8/K9 do not evaluate raises on the
+    card (no fallback), as does a state of another type."""
+    from tigar_tpu_torch.models.shell import svk_shell_energy
+    sp, _ = _two_patch(cuda)
+    U = torch.zeros(sp.ndof, dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="w_order=1"):
+        _nitsche(sp, 4, w_order=1).residual(U)
+    user = _nitsche(sp, 4, energy=lambda ctx, u, p: svk_shell_energy(
+        ctx, u, p))
+    with pytest.raises(NotImplementedError, match="lambda"):
+        user.tangent_block(U)
+    with pytest.raises(TypeError):
+        _nitsche(sp, 4).residual(U.float())

@@ -5,13 +5,15 @@ spline core, the extracted spline's volume assembler, the SVK shell
 adjoint density, sliding-window stencil tangents and the mixed-precision
 stencil-multigrid Newton solver.  The multi-patch shell: multi-patch
 bases, interface forms on non-matching interfaces, the shell penalty
-coupling and the multi-patch stencil Newton solver.  The matrix-free 3D
+coupling, the consistent (Nitsche) coupling derived from the SVK energy
+and the multi-patch stencil Newton solver.  The matrix-free 3D
 Poisson solve: sum-factorized operators, fixed-iteration CG, a geometric
 V-cycle over knot-insertion transfers and mixed-precision refinement.
-Seven hand-written CUDA kernels (``csrc/``) carry the device work: the
+Nine hand-written CUDA kernels (``csrc/``) carry the device work: the
 shell residual, the tangent stencil build, the stencil apply, the
-sum-factorized apply, the dense interface block apply, and the shell
-interface residual and tangent block.  Each has a plain PyTorch twin in
+sum-factorized apply, the dense interface block apply, and the interface
+residual and tangent block of the shell penalty and of the Nitsche
+coupling.  Each has a plain PyTorch twin in
 the same module;
 tensors on the CPU go to the twin, CUDA tensors to the kernel.  Entry
 points put their tensors on the card unless the caller asks for the CPU.
@@ -32,4 +34,5 @@ from .solvers.newton_stencil import StencilNewton  # noqa: F401
 from .models.multipatch import (MultiPatchBSplineBasis,  # noqa: F401
                                 MultiPatchControlMesh)
 from .coupling import ShellInterfaceCoupling  # noqa: F401
+from .interface import EnergyNitscheCoupling  # noqa: F401
 from .solvers.newton_stencil_mp import MultiPatchStencilNewton  # noqa: F401

@@ -141,6 +141,13 @@ _SIDE_QP = ("xi", "x", "DF", "d2F", "d3F", "w0", "w1", "w2", "w3", "pinv",
             "nu_flat")
 
 
+def _float_params(p):
+    """A parameter dict (nested dicts allowed, e.g. the Nitsche form's
+    {"beta_d", "beta_r", "w": {...}}) with every leaf as a Python float."""
+    return {k: (_float_params(v) if isinstance(v, dict) else float(v))
+            for k, v in p.items()}
+
+
 def interface_arrays(form):
     """numpy arrays of an interface form (this package's or tigar_tpu's):
     per side conn, R0..R3 and the SideQP leaves (None stays None), plus
@@ -155,15 +162,16 @@ def interface_arrays(form):
     return {"side_a": side(form.side_a), "side_b": side(form.side_b),
             "wq": _np(form.wq), "nu": _np(form.nu),
             "w_param": _np(form.w_param), "surfJ": _np(form.surfJ),
-            "params": {k: float(v) for k, v in form.params.items()},
+            "params": _float_params(form.params),
             "fields": list(form.fields), "nders": int(form._nders)}
 
 
 def interface_from_numpy(arrays, cls, density, ndof, device="cuda",
                          dtype=torch.float64):
     """An interface form of class ``cls`` (an InterfaceForm subclass, e.g.
-    coupling.ShellInterfaceCoupling) with ``density`` over ``ndof`` DoFs
-    from ``interface_arrays`` output, without a spline."""
+    coupling.ShellInterfaceCoupling, or interface.EnergyNitscheCoupling
+    with an ``interface.NitscheDensity``) with ``density`` over ``ndof``
+    DoFs from ``interface_arrays`` output, without a spline."""
     from .interface import SideData, SideQP
     device = resolve_device(device)
 
@@ -179,7 +187,7 @@ def interface_from_numpy(arrays, cls, density, ndof, device="cuda",
     form = cls.__new__(cls)
     form.density = density
     form.ndof = int(ndof)
-    form.params = dict(arrays["params"])
+    form.params = _float_params(arrays["params"])
     form.fields = list(arrays["fields"])
     form._nders = int(arrays["nders"])
     form.side_a, form.side_b = side(arrays["side_a"]), side(arrays["side_b"])

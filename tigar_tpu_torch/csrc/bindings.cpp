@@ -416,7 +416,125 @@ torch::Tensor shell_iface_tangent(std::vector<torch::Tensor> side_a,
   return K;
 }
 
+namespace {
+
+// one Nitsche interface side's tensors, checked: conn [nq, 3, 9] int32,
+// R0 [nq, 3, 9], R1 [.., 2], R2 [.., 2, 2], R3 [.., 2, 2, 2], DF
+// [nq, 3, 2], d2F [nq, 3, 2, 2], d3F [nq, 3, 2, 2, 2], pinv [nq, 2, 3],
+// nu [nq, 2]; cols is conn, or pos (the support positions) when given
+template <typename T>
+tigar::NitscheSide<T> nitsche_side(const std::vector<torch::Tensor>& s,
+                                   torch::ScalarType dt, int64_t nq,
+                                   const torch::Tensor* pos) {
+  TORCH_CHECK(s.size() == 10, "a Nitsche side is (conn, R0, R1, R2, R3, DF, "
+              "d2F, d3F, pinv, nu)");
+  check(s[0], "conn", torch::kInt, {nq, 3, 9});
+  check(s[1], "R0", dt, {nq, 3, 9});
+  check(s[2], "R1", dt, {nq, 3, 9, 2});
+  check(s[3], "R2", dt, {nq, 3, 9, 2, 2});
+  check(s[4], "R3", dt, {nq, 3, 9, 2, 2, 2});
+  check(s[5], "DF", dt, {nq, 3, 2});
+  check(s[6], "d2F", dt, {nq, 3, 2, 2});
+  check(s[7], "d3F", dt, {nq, 3, 2, 2, 2});
+  check(s[8], "pinv", dt, {nq, 2, 3});
+  check(s[9], "nu", dt, {nq, 2});
+  if (pos) check(*pos, "pos", torch::kInt, {nq, 3, 9});
+  return {(pos ? *pos : s[0]).data_ptr<int>(), ptr<T>(s[1]), ptr<T>(s[2]),
+          ptr<T>(s[3]), ptr<T>(s[4]), ptr<T>(s[5]), ptr<T>(s[6]),
+          ptr<T>(s[7]), ptr<T>(s[8]), ptr<T>(s[9])};
+}
+
+}  // namespace
+
+torch::Tensor nitsche_iface_residual(std::vector<torch::Tensor> side_a,
+                                     std::vector<torch::Tensor> side_b,
+                                     torch::Tensor wq, torch::Tensor surfJ,
+                                     torch::Tensor U,
+                                     std::vector<double> consts) {
+  const auto dt = U.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(wq.dim() == 1 && U.dim() == 1, "wq and U must be vectors");
+  const int64_t nq = wq.size(0), ndof = U.size(0);
+  check(wq, "wq", dt, {nq});
+  check(surfJ, "surfJ", dt, {nq});
+  check(U, "U", dt, {ndof});
+  TORCH_CHECK(consts.size() == 8, "nitsche_iface_residual takes 8 "
+              "constants");
+  TORCH_CHECK(ndof < (int64_t(1) << 31), "too many DoFs");
+  const c10::cuda::CUDAGuard guard(U.device());
+  auto r = torch::zeros({ndof}, U.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::nitsche_iface_residual_launch<T>(
+        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
+        nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
+        ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::nitsche_iface_residual_launch<T>(
+        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
+        nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
+        ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
+  }
+  check_launch(err, "nitsche_iface_residual");
+  return r;
+}
+
+torch::Tensor nitsche_iface_tangent(std::vector<torch::Tensor> side_a,
+                                    std::vector<torch::Tensor> side_b,
+                                    torch::Tensor pos_a, torch::Tensor pos_b,
+                                    torch::Tensor wq, torch::Tensor surfJ,
+                                    torch::Tensor u_sub,
+                                    std::vector<double> consts) {
+  const auto dt = u_sub.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(wq.dim() == 1 && u_sub.dim() == 1, "wq and u_sub must be "
+              "vectors");
+  const int64_t nq = wq.size(0), m = u_sub.size(0);
+  check(wq, "wq", dt, {nq});
+  check(surfJ, "surfJ", dt, {nq});
+  check(u_sub, "u_sub", dt, {m});
+  TORCH_CHECK(consts.size() == 8, "nitsche_iface_tangent takes 8 constants");
+  TORCH_CHECK(m < (int64_t(1) << 31), "support too large");
+  const c10::cuda::CUDAGuard guard(u_sub.device());
+  auto K = torch::zeros({m, m}, u_sub.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::nitsche_iface_tangent_launch<T>(
+        (int)nq, (int)m, nitsche_side<T>(side_a, dt, nq, &pos_a),
+        nitsche_side<T>(side_b, dt, nq, &pos_b), ptr<T>(wq), ptr<T>(surfJ),
+        ptr<T>(u_sub), consts.data(), K.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::nitsche_iface_tangent_launch<T>(
+        (int)nq, (int)m, nitsche_side<T>(side_a, dt, nq, &pos_a),
+        nitsche_side<T>(side_b, dt, nq, &pos_b), ptr<T>(wq), ptr<T>(surfJ),
+        ptr<T>(u_sub), consts.data(), K.data_ptr<T>(), stream);
+  }
+  check_launch(err, "nitsche_iface_tangent");
+  return K;
+}
+
+// the per-thread stack (local memory) the context reserves now, bytes
+int64_t stack_limit() {
+  size_t v = 0;
+  const cudaError_t err = cudaDeviceGetLimit(&v, cudaLimitStackSize);
+  TORCH_CHECK(err == cudaSuccess, "cudaDeviceGetLimit: ",
+              cudaGetErrorString(err));
+  return (int64_t)v;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("stack_limit", &stack_limit,
+        "cudaDeviceGetLimit(cudaLimitStackSize): bytes of stack a thread");
+  m.def("nitsche_iface_residual", &nitsche_iface_residual,
+        "K8: consistent (Nitsche) SVK shell interface residual");
+  m.def("nitsche_iface_tangent", &nitsche_iface_tangent,
+        "K9: consistent (Nitsche) SVK shell interface tangent block");
   m.def("iface_block", &iface_block,
         "K5: dense interface block apply (in place on out)");
   m.def("shell_iface_residual", &shell_iface_residual,

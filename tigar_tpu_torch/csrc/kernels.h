@@ -99,4 +99,42 @@ cudaError_t shell_iface_tangent_launch(int nq, int m, IfaceSide<T> sa,
                                        const T* u_sub, const double* consts,
                                        T* K, cudaStream_t stream);
 
+// One side of a Nitsche shell interface at nq points: cols [nq][3][9]
+// (global DoF indices for K8, positions in the support for K9), rows R0
+// [nq][3][9], R1 [..][2], R2 [..][2][2], R3 [..][2][2][2], geometry DF
+// [nq][3][2], d2F [nq][3][2][2], d3F [nq][3][2][2][2], pinv [nq][2][3],
+// the flat conormal nu [nq][2].
+template <typename T>
+struct NitscheSide {
+  const int* cols;
+  const T* R0;
+  const T* R1;
+  const T* R2;
+  const T* R3;
+  const T* DF;
+  const T* d2F;
+  const T* d3F;
+  const T* pinv;
+  const T* nu;
+};
+
+// K8: consistent (Nitsche) SVK shell interface residual, r += dE/dU (r
+// zero-initialised).  consts = {beta_d, beta_r, w_a, w_b, lam_ps, 2 mu, h,
+// h^3/12}.
+template <typename T>
+cudaError_t nitsche_iface_residual_launch(int nq, NitscheSide<T> sa,
+                                          NitscheSide<T> sb, const T* wq,
+                                          const T* surfJ, const T* U,
+                                          const double* consts, T* r,
+                                          cudaStream_t stream);
+
+// K9: its tangent block K [m][m] (zero-initialised) at u_sub = U[idx]; the
+// sides' cols are the positions in idx.
+template <typename T>
+cudaError_t nitsche_iface_tangent_launch(int nq, int m, NitscheSide<T> sa,
+                                         NitscheSide<T> sb, const T* wq,
+                                         const T* surfJ, const T* u_sub,
+                                         const double* consts, T* K,
+                                         cudaStream_t stream);
+
 }  // namespace tigar

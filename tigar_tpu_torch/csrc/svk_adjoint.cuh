@@ -1,6 +1,7 @@
 // Pointwise SVK Kirchhoff-Love shell adjoint jet, templated over the
-// working type T: a plain float/double (residual kernel K1) or a
-// forward-mode dual number over it (tangent kernel K2).  Line for line the
+// working type T: a plain float/double (residual kernel K1), a
+// forward-mode dual number over it (tangent kernel K2), or nested duals
+// (the Nitsche interface kernels K8/K9).  Line for line the
 // formulas of tigar_tpu/models/shell.py:svk_shell_adjoint (and of the
 // port's models/shell.py): given the deformed Jacobian G = DF + u.g [3][2]
 // and Hessian H = d2F + u.h [3][2][2], returns Fg [3][2] and Fh [3][2][2]
@@ -8,7 +9,11 @@
 // adjoint jet is zero (a constant load is added by the caller), and the
 // density does not depend on u.val.
 #pragma once
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
+
+#include <type_traits>
 
 namespace tigar {
 
@@ -19,6 +24,13 @@ struct Dual {
   S d[ND];
   __device__ __forceinline__ Dual() {}
   __device__ __forceinline__ Dual(S x) : v(x) {
+#pragma unroll
+    for (int k = 0; k < ND; ++k) d[k] = S(0);
+  }
+  // a constant from a plain number at any nesting depth (Dual<Dual<..>>)
+  template <typename A, typename std::enable_if<std::is_arithmetic<A>::value,
+                                                int>::type = 0>
+  __device__ __forceinline__ explicit Dual(A x) : v(S(x)) {
 #pragma unroll
     for (int k = 0; k < ND; ++k) d[k] = S(0);
   }

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Any
 
+import torch
+
 
 class Jet(NamedTuple):
     """2-jet of a (possibly vector-valued) field in parametric coordinates.
@@ -59,3 +61,13 @@ class QP(NamedTuple):
                 return type(v)(*[go(x) for x in v])
             return fn(v)
         return QP(*[go(v) for v in self])
+
+
+def taylor_eval(val, g, h, delta):
+    """The 2-jet (val, g, h) as a truncated Taylor polynomial at parametric
+    offset ``delta`` [d] (see tigar_tpu.forms.taylor_eval); the jet's
+    trailing axes are parametric, its leading ones are kept."""
+    out = val + torch.tensordot(g, delta, dims=([-1], [0]))
+    if h is not None:
+        out = out + 0.5 * torch.einsum("...cd,c,d->...", h, delta, delta)
+    return out

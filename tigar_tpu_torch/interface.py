@@ -1,7 +1,8 @@
 """Interface forms on non-matching multi-patch interfaces (port of
 tigar_tpu/interface.py: the merged-breakpoint interface quadrature, the
-rational jet rows, the jet and geometry containers, ``InterfaceForm`` and
-its residual and dense tangent block).
+rational jet rows, the jet and geometry containers, ``InterfaceForm`` with
+its residual and dense tangent block, and the consistent coupling
+``EnergyNitscheCoupling`` with its flux machinery).
 
 An ``InterfaceForm`` holds a pointwise energy density over the jets of the
 coupled fields on both sides of a patch interface and the interface
@@ -14,17 +15,24 @@ both sides, then kept as tensors on the spline's device.  The residual is
 dE/dU and ``tangent_block`` the exact Hessian over the interface support,
 as dense [m, m] block.
 
+``EnergyNitscheCoupling`` derives a variationally consistent symmetric
+Nitsche coupling from a domain energy density W(ctx, u, params): the
+flux of each side is the boundary pairing of the first variation of
+int W sqrt(det g) dxi, with A = dWhat/du_h and B = dWhat/du_g by
+``torch.func.grad`` and the divergence of A by ``torch.func.jvp`` through
+the Taylor shift of the order-3 jets (see tigar_tpu/interface.py).
+
 Kernels (B11 of the JAX package's kernel set): on CUDA tensors the residual
 and the tangent block run hand kernels for the densities that have one
-(K6 and K7 for ``coupling.ShellInterfaceCoupling``); a form whose density
-has no kernel raises ``NotImplementedError`` on the card.  CPU tensors run
-the plain versions, ``torch.func`` ``grad`` of the energy and ``hessian``
-of the per-point density under ``vmap``, as the JAX package's
-``_iform_residual`` and ``_iform_tangent_block`` do.
+(K6 and K7 for ``coupling.ShellInterfaceCoupling``, K8 and K9 for
+``EnergyNitscheCoupling`` on ``models.shell.svk_shell_energy`` with
+w_order=2); a form whose density has no kernel raises
+``NotImplementedError`` on the card.  CPU tensors run the plain versions,
+``torch.func`` ``grad`` of the energy and ``hessian`` of the per-point
+density under ``vmap``, as the JAX package's ``_iform_residual`` and
+``_iform_tangent_block`` do.
 
-Not ported yet: ``EnergyNitscheCoupling`` and its flux machinery
-(``_side_flux_pairing``, ``_taylor_shift``, ``_side_ctx_at``,
-``_jet2_at``) and the tangent action ``_iform_tangent``.
+Not ported yet: the tangent action ``_iform_tangent``.
 """
 
 from __future__ import annotations
@@ -37,8 +45,11 @@ import numpy as np
 import torch
 
 from .config import INDEX_TYPE, TORCH_INDEX_TYPE
+from .forms import Jet, QP
+from .ops import cuda_ext
 from .ops.basis import eval_basis
 from .ops.quadrature import gauss_rule, npoints_for_degree
+from .ops.smallmat import det_small, inv_small
 
 
 # -- interface quadrature (merged breakpoints of both sides) -------------------
@@ -260,6 +271,122 @@ class InterfaceQP(NamedTuple):
     b: SideQP
     nu: Any
     surfJ: Any
+
+
+def phys_grad(u: Jet3, side: SideQP):
+    """Physical (surface) gradient rows of the side fields: [..., nf, nsd]."""
+    return u.g @ side.pinv
+
+
+def _contract_last(t, delta):
+    """t [..., X, d] . delta [..., d] over the last axis, the leading
+    (batch) axes of delta broadcast against t's."""
+    dl = delta.reshape(delta.shape[:-1] + (1,) * (t.dim() - delta.dim())
+                       + delta.shape[-1:])
+    return (t * dl).sum(-1)
+
+
+def _taylor_shift(jets, delta, m):
+    """m-th derivative tensor of the Taylor polynomial with raw derivative
+    tensors ``jets`` (list by order; trailing axes parametric) at the
+    parametric offset ``delta``: sum_k (1/k!) jets[m+k] . delta^k."""
+    out = None
+    fact = 1.0
+    for k in range(len(jets) - m):
+        t = jets[m + k]
+        if t is None:
+            break
+        if k:
+            # divided before the contraction, while t still has its k
+            # parametric axes (see models.shell._svk_contract)
+            t = t / fact
+        for _ in range(k):
+            t = _contract_last(t, delta)
+        out = t if out is None else out + t
+        fact *= (k + 1)
+    return out
+
+
+def _jets_list(*js):
+    out = []
+    for j in js:
+        if j is None:
+            break
+        out.append(j)
+    return out
+
+
+def _side_ctx_at(s: SideQP, delta):
+    """QP context of one side at parametric offset ``delta`` from the
+    tabulated point (exact for the polynomial geometry within the cell);
+    aux is None, so a shell energy recomputes its reference geometry."""
+    Xj = _jets_list(s.x, s.DF, s.d2F, s.d3F)
+    Wj = _jets_list(s.w0, s.w1, s.w2, s.w3)
+    x = _taylor_shift(Xj, delta, 0)
+    DF = _taylor_shift(Xj, delta, 1)
+    d2F = _taylor_shift(Xj, delta, 2) if len(Xj) >= 3 else None
+    w0 = _taylor_shift(Wj, delta, 0)
+    w1 = _taylor_shift(Wj, delta, 1)
+    w2 = _taylor_shift(Wj, delta, 2) if len(Wj) >= 3 else None
+    g = DF.transpose(-1, -2) @ DF
+    ginv = inv_small(g)
+    sqrtJ = torch.sqrt(det_small(g))
+    pinv = ginv @ DF.transpose(-1, -2)
+    return QP(xi=s.xi + delta, x=x, w=w0, wg=w1, wh=w2, DF=DF, d2F=d2F,
+              g=g, ginv=ginv, sqrtJ=sqrtJ, pinv=pinv, aux=None)
+
+
+def _jet2_at(u: Jet3, delta):
+    js = _jets_list(u.val, u.g, u.h, u.t3)
+    val = _taylor_shift(js, delta, 0)
+    g = _taylor_shift(js, delta, 1)
+    h = _taylor_shift(js, delta, 2) if len(js) >= 3 else None
+    return Jet(val, g, h)
+
+
+def _side_flux_pairing(s: SideQP, u3: Jet3, J0, J1, W_density, w_order,
+                       params):
+    """One side's boundary pairing of the first variation of
+    int W sqrt(det g) dxi against the physical jump (J0 value jump [nf],
+    J1 physical-gradient jump [nf, nsd]), per unit parametric interface
+    measure:
+
+        P = A^{i nu d} (J1_i . DF[:, d]) + (B^{i nu} - d_g A^{i g nu}) J0_i
+
+    with A = dWhat/du_h and B = dWhat/du_g (What = W sqrt(det g)) at the
+    Taylor-shifted point and d_g A by forward mode through the shift; the
+    orientation sigma is folded into s.nu_flat."""
+    nu = s.nu_flat
+    dim = nu.shape[-1]
+    zero = torch.zeros_like(nu)
+
+    def AB(delta):
+        ctx = _side_ctx_at(s, delta)
+        u = _jet2_at(u3, delta)
+
+        def What(uh, ug):
+            return (W_density(ctx, Jet(u.val, ug, uh), params)
+                    * ctx.sqrtJ).sum()
+
+        if w_order >= 2:
+            return torch.func.grad(What, argnums=(0, 1))(u.h, u.g)
+        return None, torch.func.grad(lambda ug: What(u.h, ug))(u.g)
+
+    A0, B0 = AB(zero)
+    T = (B0 * nu[..., None, :]).sum(-1)                  # [..., nf]
+    pair = (T * J0).sum(-1)
+    if w_order >= 2:
+        eye = torch.eye(dim, dtype=nu.dtype, device=nu.device)
+        divA = 0.0
+        for g in range(dim):
+            dA = torch.func.jvp(lambda d: AB(d)[0], (zero,),
+                                (zero + eye[g],))[1]     # [..., nf, dim, dim]
+            divA = divA + (dA[..., g] * nu[..., None, :]).sum(-1)
+        pair = pair - (divA * J0).sum(-1)
+        Anu = (A0 * nu[..., None, :, None]).sum(-2)      # [..., nf, dim]
+        # J1 . DF[:, d]: parametric derivative of the smooth jump field
+        pair = pair + (Anu * (J1 @ s.DF)).sum((-2, -1))
+    return pair
 
 
 class SideData(NamedTuple):
@@ -609,3 +736,152 @@ def _iform_residual(form, U):
 def iform_residual_ref(form, U):
     """Plain version: torch.func.grad of the form's energy."""
     return torch.func.grad(form.energy)(U)
+
+
+# -- automatic consistent (Nitsche) coupling from a domain energy density -------
+
+
+class NitscheDensity:
+    """The symmetric-Nitsche interface density of an energy density
+    ``energy_density`` (tigar_tpu.interface.EnergyNitscheCoupling's
+    closure as an object, so that kernels and ``convert`` can read what it
+    couples):
+
+        -(w_a P_a - w_b P_b) / surfJ + 1/2 (beta_d |J0|^2 + beta_r |J1|^2)
+
+    with P_s the side flux pairings (``_side_flux_pairing``)."""
+
+    def __init__(self, energy_density, w_order=2, weights=(0.5, 0.5)):
+        self.energy_density = energy_density
+        self.w_order = int(w_order)
+        self.weights = (float(weights[0]), float(weights[1]))
+        name = getattr(energy_density, "__name__", repr(energy_density))
+        self.__name__ = f"nitsche({name}, w_order={self.w_order})"
+
+    def __call__(self, ua, ub, qp, p):
+        # per-point scalars carry a trailing axis while they meet Python
+        # floats (see models.shell._svk_contract)
+        wa, wb = self.weights
+        J0 = ua.val - ub.val
+        J1 = phys_grad(ua, qp.a) - phys_grad(ub, qp.b)
+        pair = 0.0
+        for w, side, u in ((wa, qp.a, ua), (-wb, qp.b, ub)):
+            if w != 0.0:
+                pair = pair + w * _side_flux_pairing(
+                    side, u, J0, J1, self.energy_density, self.w_order,
+                    p["w"])[..., None]
+        stab = 0.5 * (p["beta_d"] * (J0 * J0).sum(-1, keepdim=True)
+                      + p["beta_r"] * (J1 * J1).sum((-2, -1))[..., None])
+        # the flux pairing is per parametric measure; the density contract
+        # is per physical measure
+        return (-pair / qp.surfJ[..., None] + stab)[..., 0]
+
+
+class EnergyNitscheCoupling(InterfaceForm):
+    """Variationally consistent symmetric-Nitsche coupling of a
+    non-matching two-patch interface, derived from the pointwise domain
+    energy density ``W(ctx, u, params)`` of the bulk problem (see
+    tigar_tpu.interface.EnergyNitscheCoupling).
+
+    Parameters
+    ----------
+    energy_density : W(ctx: QP, u: Jet, params) -> physical energy
+                     density; ``models.shell.svk_shell_energy`` (with
+                     w_order=2) has the CUDA kernels K8/K9
+    beta_d, beta_r : value- and gradient-jump stabilization
+    w_order   : highest derivative order W uses (1 or 2); jets are
+                tabulated to w_order + 1
+    weights   : (w_a, w_b) flux averaging weights
+    params    : W's parameters (a dict of floats)
+    """
+
+    def __init__(self, spline, patch_a, side_a, patch_b, side_b,
+                 energy_density, beta_d, beta_r=0.0, w_order=2,
+                 weights=(0.5, 0.5), params=None, fields=None,
+                 quad_degree=None, flips=None, geom_tol=1e-8):
+        w_order = int(w_order)
+        if w_order not in (1, 2):
+            raise ValueError("w_order must be 1 or 2")
+        all_params = {"beta_d": float(beta_d), "beta_r": float(beta_r),
+                      "w": {} if params is None else dict(params)}
+        super().__init__(spline, patch_a, side_a, patch_b, side_b,
+                         NitscheDensity(energy_density, w_order, weights),
+                         params=all_params, nders=w_order + 1,
+                         fields=fields, quad_degree=quad_degree,
+                         flips=flips, geom_tol=geom_tol)
+
+    def grad_jump_norm(self, U):
+        """L2 norm of the physical-gradient jump (rotation-jump diagnostic
+        of bending problems)."""
+        ua = self._jets(U, self.side_a)
+        ub = self._jets(U, self.side_b)
+        qp = self._qp()
+        J1 = phys_grad(ua, qp.a) - phys_grad(ub, qp.b)
+        return torch.sqrt(torch.sum(self.wq * (J1 * J1).sum((-2, -1))))
+
+    # -- kernels K8 / K9 --------------------------------------------------------
+
+    def _kernel_args(self, x, params):
+        """Check what K8/K9 take: the SVK shell energy at w_order=2, 3
+        fields of 9 biquadratic functions per side in 3D; returns
+        (side_a, side_b, consts)."""
+        from .models.shell import svk_shell_energy
+        d = self.density
+        if not (isinstance(d, NitscheDensity)
+                and d.energy_density is svk_shell_energy
+                and d.w_order == 2):
+            raise self._no_kernel()
+        if not (x.is_cuda and self.wq.is_cuda):
+            raise ValueError("the Nitsche interface kernels need CUDA "
+                             "tensors")
+        if x.dtype != self.dtype or x.dtype not in (torch.float32,
+                                                    torch.float64):
+            raise TypeError(f"state {x.dtype} vs interface form "
+                            f"{self.dtype}")
+        nq = self.wq.shape[0]
+
+        def side(sd):
+            qp = sd.qp
+            t = (sd.conn, sd.R0, sd.R1, sd.R2, sd.R3, qp.DF, qp.d2F,
+                 qp.d3F, qp.pinv, qp.nu_flat)
+            shapes = ((nq, 3, 9), (nq, 3, 9), (nq, 3, 9, 2),
+                      (nq, 3, 9, 2, 2), (nq, 3, 9, 2, 2, 2), (nq, 3, 2),
+                      (nq, 3, 2, 2), (nq, 3, 2, 2, 2), (nq, 2, 3), (nq, 2))
+            if any(a is None or tuple(a.shape) != s
+                   for a, s in zip(t, shapes)):
+                raise ValueError("the Nitsche interface kernels take 3 "
+                                 "fields of 9 biquadratic functions per "
+                                 "side in 3D, jets to order 3")
+            return [a.contiguous() for a in t]
+
+        w = params["w"]
+        E, nu, h = float(w["E"]), float(w["nu"]), float(w["h"])
+        consts = [float(params["beta_d"]), float(params["beta_r"]),
+                  d.weights[0], d.weights[1],
+                  E * nu / (1.0 - nu ** 2), E / (1.0 + nu), h,
+                  h ** 3 / 12.0]
+        return side(self.side_a), side(self.side_b), consts
+
+    def residual_cuda(self, U, params):
+        """Kernel K8: one block per interface quadrature point."""
+        sa, sb, consts = self._kernel_args(U, params)
+        if U.shape != (self.ndof,):
+            raise ValueError(f"U shape {tuple(U.shape)} != ({self.ndof},)")
+        r = cuda_ext.load().nitsche_iface_residual(
+            sa, sb, self.wq.contiguous(), self.surfJ.contiguous(),
+            U.contiguous(), consts)
+        cuda_ext.count("nitsche_iface_residual")
+        return r
+
+    def tangent_block_cuda(self, u_sub, pos_a, pos_b, params):
+        """Kernel K9: one block per interface quadrature point."""
+        sa, sb, consts = self._kernel_args(u_sub, params)
+        if u_sub.shape != (len(self.support),):
+            raise ValueError(f"u_sub shape {tuple(u_sub.shape)}, support "
+                             f"{len(self.support)}")
+        K = cuda_ext.load().nitsche_iface_tangent(
+            sa, sb, pos_a.contiguous(), pos_b.contiguous(),
+            self.wq.contiguous(), self.surfJ.contiguous(),
+            u_sub.contiguous(), consts)
+        cuda_ext.count("nitsche_iface_tangent")
+        return K

@@ -1,10 +1,12 @@
 """Kirchhoff-Love shell: reference frame and the SVK adjoint density.
 
 Port of the parts of tigar_tpu/models/shell.py that the production shell
-path runs: ``ShellReference``, ``cartesian_frame_matrix``,
+paths run: ``ShellReference``, ``cartesian_frame_matrix``,
 ``shell_reference``, ``precompute_shell_reference``, ``svk_shell_residual``
-and ``svk_shell_adjoint``.  Every function indexes trailing axes only, so
-it evaluates a whole [nel, nq] batch in one call and also runs per point
+and ``svk_shell_adjoint``, and the energy the consistent interface
+coupling differentiates: ``configuration_fn``, ``midsurface_geometry`` and
+``svk_psi_surface``.  Every function indexes trailing axes only, so it
+evaluates a whole [nel, nq] batch in one call and also runs per point
 under ``torch.func.vmap``/``jacfwd`` (the tangent twin).
 
 ``SVKShellAdjoint`` bundles the adjoint density with its material
@@ -19,7 +21,7 @@ from typing import NamedTuple, Any
 
 import torch
 
-from ..forms import Jet
+from ..forms import Jet, taylor_eval
 from ..ops.smallmat import inv_small
 
 
@@ -72,6 +74,39 @@ def _midsurface(G, H):
     return a0, a1, a2, deriv_a2, a, b
 
 
+class MidsurfaceGeometry(NamedTuple):
+    """Covariant midsurface data in one configuration: basis vectors a0,
+    a1 [..., 3], unit normal a2 [..., 3] and its parametric derivatives
+    deriv_a2 [..., 3, 2], metric a and curvature b [..., 2, 2]."""
+    a0: Any
+    a1: Any
+    a2: Any
+    deriv_a2: Any
+    a: Any
+    b: Any
+
+
+def configuration_fn(ctx, y=None):
+    """Taylor polynomial (in the parametric offset) of the shell
+    configuration: the reference midsurface X = F, deformed by the
+    displacement jet ``y`` when given (per point)."""
+    def xfun(delta):
+        X = taylor_eval(ctx.x, ctx.DF, ctx.d2F, delta)
+        if y is None:
+            return X
+        return X + taylor_eval(y.val, y.g, y.h, delta)
+    return xfun
+
+
+def midsurface_geometry(ctx, y=None):
+    """MidsurfaceGeometry of the reference midsurface, or of the one
+    deformed by the displacement jet ``y``: Jacobian DF + y.g, Hessian
+    d2F + y.h (closed form, as tigar_tpu.models.shell)."""
+    G = ctx.DF if y is None else ctx.DF + y.g
+    H = ctx.d2F if y is None else ctx.d2F + y.h
+    return MidsurfaceGeometry(*_midsurface(G, H))
+
+
 def cartesian_frame_matrix(a, a0, a1):
     """The (e_i . a^j) matrix of the curvilinear-to-local-Cartesian map."""
     ac = inv_small(a)
@@ -106,6 +141,51 @@ def precompute_shell_reference(spline, domain="dx"):
         attach(quad_key[0], spline._assemblers[quad_key])
     spline._ctx_hooks.append(attach)
     return spline
+
+
+def _svk_contract(S, lam_ps, mu):
+    """lam tr(S)^2 + 2 mu S:S as [..., 1]: per-point scalars keep a
+    trailing axis while they meet Python floats, because torch.func's
+    forward mode turns the tangent of (0-dim tensor) * (Python float) into
+    float64 (torch 2.13), which f32 matmuls downstream refuse."""
+    trS = _trace(S)[..., None]
+    return (lam_ps * trS * trS
+            + 2.0 * mu * (S * S).sum((-2, -1))[..., None])
+
+
+def svk_psi_surface(ctx, y, E_mod, nu, h_th):
+    """St. Venant-Kirchhoff Kirchhoff-Love shell energy per unit reference
+    midsurface area, integrated through the thickness: 1/2 (h A:eps:eps +
+    h^3/12 A:kappa:kappa) with the local-Cartesian membrane strain eps,
+    curvature change kappa and the plane-stress tensor A.
+
+    The reference geometry is read from ``ctx.aux['shell_ref']`` when
+    present, else recomputed from ``ctx`` (the interface coupling's
+    shifted points carry no aux)."""
+    if ctx.aux is not None and "shell_ref" in ctx.aux:
+        sref = ctx.aux["shell_ref"]
+        ref_a, ref_b, ea = sref.a, sref.b, sref.ea
+    else:
+        ref = midsurface_geometry(ctx)
+        ref_a, ref_b = ref.a, ref.b
+        ea = cartesian_frame_matrix(ref.a, ref.a0, ref.a1)
+    cur = midsurface_geometry(ctx, y)
+    eps = ea @ (0.5 * (cur.a - ref_a)) @ _tr(ea)
+    kappa = ea @ (cur.b - ref_b) @ _tr(ea)
+    lam_ps = E_mod * nu / (1.0 - nu ** 2)
+    mu = E_mod / (2.0 * (1.0 + nu))
+    return (0.5 * (h_th * _svk_contract(eps, lam_ps, mu)
+                   + h_th ** 3 / 12.0 * _svk_contract(kappa, lam_ps,
+                                                      mu)))[..., 0]
+
+
+def svk_shell_energy(ctx, u, params):
+    """``svk_psi_surface`` with the material in ``params`` ({"E", "nu",
+    "h"}): the energy density of bench.py's consistent two-patch
+    coupling, and the one density whose Nitsche coupling has CUDA kernels
+    (K8/K9; ``interface.EnergyNitscheCoupling`` recognises it by
+    identity)."""
+    return svk_psi_surface(ctx, u, params["E"], params["nu"], params["h"])
 
 
 def _svk_primal(ctx, y, E_mod, nu, h_th):

@@ -1,9 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources live in ``tigar_tpu_torch/csrc``: six ``.cu`` files with
-plain C++ launchers (no PyTorch headers, so nvcc compiles them in seconds)
-and one binding file, ``bindings.cpp``, the only one that includes
-``torch/extension.h``.  ``load()`` compiles all seven with
+The sources live in ``tigar_tpu_torch/csrc``: seven ``.cu`` files with
+plain C++ launchers (no PyTorch headers) and one binding file,
+``bindings.cpp``, the only one that includes ``torch/extension.h``.
+``load()`` compiles all eight (ninja runs the compilers in parallel) with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` on first use, into
 ``build/tigar_kernels/`` under the repository root, and caches the module
 for the process.  Nothing is built at import time.
@@ -19,7 +19,8 @@ import time
 
 KERNELS = ("shell_residual", "tangent_stencil", "stencil_apply",
            "sumfac_apply", "iface_block", "shell_iface_residual",
-           "shell_iface_tangent")
+           "shell_iface_tangent", "nitsche_iface_residual",
+           "nitsche_iface_tangent")
 
 _launches = {k: 0 for k in KERNELS}
 _ext = None
@@ -29,7 +30,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("bindings.cpp", "shell_residual.cu", "tangent_stencil.cu",
            "stencil_apply.cu", "sumfac_apply.cu", "iface_block.cu",
-           "shell_interface.cu")
+           "shell_interface.cu", "shell_nitsche.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "tigar_kernels")
 

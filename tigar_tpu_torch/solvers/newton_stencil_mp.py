@@ -18,7 +18,8 @@ Kernels on this path: K1 (residual over the concatenated patches), K2
 K3 (per-patch stencil action, reading and writing each patch in place in
 the field-major multi-patch vector), K5 (the dense interface block apply,
 ``csrc/iface_block.cu``), K6/K7 (interface residual and tangent block of
-the shell penalty coupling).  CPU tensors run every kernel's plain
+the shell penalty coupling) or K8/K9 (those of the consistent Nitsche
+coupling on the SVK energy).  CPU tensors run every kernel's plain
 version.
 
 Left out (TPU workarounds of the JAX package): the coarse-operator disk
