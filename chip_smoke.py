@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of tigar_tpu_torch on one NVIDIA card: the production
-Newton path of the clamped SVK Kirchhoff-Love shell and the matrix-free
-3D Poisson multigrid path.
+Newton path of the clamped SVK Kirchhoff-Love shell (stencil multigrid,
+and the space-agnostic smoothed-aggregation tier), the two-patch coupled
+shells and the matrix-free 3D Poisson multigrid path.
 
     python3 chip_smoke.py
 
@@ -17,14 +18,15 @@ f64 CG, 20 iterations, preconditioned by an f32 V-cycle over 96/48/24/12/6
 with Jacobi V(2,2) smoothing, every operator apply sum-factorized.
 
 Phases, each fatal on failure (nothing is caught):
-  1. build the nine CUDA kernels from tigar_tpu_torch/csrc;
+  1. build the CUDA kernels from tigar_tpu_torch/csrc;
   2. per kernel, at the main paths' shapes and seeded inputs: kernel
      against its plain PyTorch twin on the card (max relative error;
-     tolerance f64 1e-12, f32 1e-4 on stencils and 1e-5 elsewhere), both
-     times by CUDA events, the kernel's device time per launch by the
-     profiler (taken after phase 5), and its bound (bytes over 3.35 TB/s
-     or operations over the peak rate of the type, the larger); K4 also
-     at a small periodic 3D and a small 2D p=3 case;
+     tolerance f64 1e-12, f32 1e-4 on K2's stencils and element
+     matrices and 1e-5 elsewhere), both times by CUDA events, the
+     kernel's device time per launch by the profiler (taken after phase
+     5), and its bound (bytes over 3.35 TB/s or operations over the peak
+     rate of the type, the larger); K4 also at a small periodic 3D and a
+     small 2D p=3 case;
   3. the shell main path: one production step after a warm-up (best of
      3), then the full solve to rtol=1e-10 with every launch count reset
      just before it and read just after;
@@ -74,6 +76,23 @@ Phases, each fatal on failure (nothing is caught):
      the small-input reference on the Nitsche plate of
      tests/test_newton_mp.py:132 (card against CPU plain versions: steps
      within 1, U within 1e-7).
+ 10. the shell of phase 3 solved by SANewton, the space-agnostic tier
+     (element-batch tangents, a multilevel smoothed-aggregation V-cycle
+     built on the host), with the options bench._tspline_point gives it
+     (bench.py:418-425: cg_iters=120, polish_cg_iters=160,
+     polish_tangent="f64", rebuild_rel=0.1, near_kernel "linear",
+     coarse_size 800) and two changes: build_quad_degree=2, as the
+     headline shell uses, and f64 residuals on the card (the bench routes
+     the polish residual to the host CPU, a TPU workaround).  K2's element
+     mode (f32 and f64), K10 (apply, BC'd apply, diagonal; f32 and f64)
+     and K11 (A, P and P^T of every SA level; f32) against their plain
+     versions, K10/K11 also against torch.sparse CSR products; the SA
+     level sizes and the host setup seconds; the best of 3 warm f32
+     steps; the full solve with every launch count reset just before it
+     and read just after; its floor certificate as in phase 4 and its U
+     within 1e-7 of phase 3's StencilNewton solution; the small-input
+     reference on tests/test_newton_sa.py's 8x8 plate (card against CPU
+     plain versions: steps within 1, U within 1e-8).
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -105,6 +124,12 @@ MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 CARD = None
+
+# A torch.profiler session over K9 after the kernel phases and K8's
+# sessions ended this script with a segmentation fault, so K9's device time
+# is its CUDA-event time.  scripts/k9_profile_check.py sets this to put K9
+# back into the profiler sessions (with the bounds-checked kernel build).
+PROFILE_K9 = False
 
 
 def say(msg):
@@ -260,6 +285,24 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
         say(f"    bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
             f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP)")
     record.append(entry)
+
+
+def shell_certificate(ns, Usol, rel64, dU_rel, label="shell"):
+    """The CPU twin of K1 on the final state: rel64 <= 3 cpu_rel,
+    rel64 <= 1e-8 and |dU|/|U| <= 1e-10; or rel64 <= 1e-10."""
+    from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
+    r0_64 = ns.true_rel_residual(torch.zeros_like(Usol))
+    r_cpu = ns.mask64.cpu() * residual_vector_adjoint_ref(
+        ns.asm64.to("cpu"), ns.adjoint, Usol.cpu())
+    cpu_rel = float(torch.linalg.norm(r_cpu)) / r0_64
+    floor_ok = bool(rel64 <= 3.0 * max(cpu_rel, 1e-16) and rel64 <= 1e-8
+                    and dU_rel <= 1e-10)
+    f64_ok = bool(rel64 <= 1e-10) or floor_ok
+    say(f"{label} floor certificate: rel64 {rel64:.3e}, CPU-twin f64 rel "
+        f"{cpu_rel:.3e}, |dU|/|U| {dU_rel:.3e}: floor_certified={floor_ok}, "
+        f"f64_accurate={f64_ok}")
+    if not f64_ok:
+        raise SystemExit(f"{label} floor certificate FAILED")
 
 
 def kernel_phases(ns):
@@ -1060,9 +1103,11 @@ def nitsche_kernel_phases(ns, rec):
                         c, us, pos_a, pos_b, c.params),
                     tol, 10 if timed else 2, 1 if timed else 0,
                     rec["nitsche_iface_tangent"],
+                    match=("nitsche_tangent_kernel"
+                           if timed and PROFILE_K9 else None),
                     work=(nbytes(us, pos_a, pos_b, c.wq, c.surfJ, *tabs)
                           + m * m * es, float(nq * need9), dt))
-            if timed:
+            if timed and not PROFILE_K9:
                 # a torch.profiler session over K9 ends this process with
                 # a segmentation fault once K9 and its plain version have
                 # run here: its device time is the CUDA-event time (one
@@ -1120,6 +1165,229 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
     return Usol, rel64, dU_rel, launches
 
 
+# -- the SANewton path: element tangents and smoothed aggregation ------------
+
+# bench._tspline_point's SANewton options (bench.py:418-425), with the
+# headline shell's build_quad_degree=2 and f64 residuals on the card
+SA_OPTS = dict(cg_iters=120, polish_cg_iters=160, polish_tangent="f64",
+               build_quad_degree=2, rebuild_rel=0.1,
+               sa_kwargs={"near_kernel": "linear"})
+SA_REF = dict(cg_iters=60, polish_cg_iters=80,
+              sa_kwargs={"coarse_size": 100})     # tests/test_newton_sa.py
+
+
+def sa_solver(spline, density, opts=SA_OPTS):
+    from tigar_tpu_torch.solvers.newton_sa import SANewton
+    return SANewton(spline, density, **opts)
+
+
+def csr_of(rows, cols, vals, shape):
+    """The same matrix as one torch.sparse CSR tensor (duplicates summed):
+    the library yardstick of K10 / K11."""
+    A = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                vals, shape).coalesce()
+    return A.to_sparse_csr()
+
+
+def sa_kernel_phases(ns, U64, rec):
+    """K2's element mode (f32 at the build rule, f64 for the polish
+    tangent), K10 (apply, BC'd apply, diagonal; f32 and f64) and K11 (A,
+    P and P^T of every SA level, and A's residual and Jacobi modes; f32,
+    as the cycle runs) against their plain versions at the SANewton
+    path's shapes, at a seeded smooth state.  K10's and K11's library
+    yardstick is the same matrix as a torch.sparse CSR tensor applied with
+    ``@``.  Returns the host seconds of one SA hierarchy setup."""
+    from tigar_tpu_torch.ops import sparse
+    from tigar_tpu_torch.ops.assembly import (element_matrices_adjoint_ref,
+                                              shell_kernel_args)
+    for name in ("tangent_elements", "elem_tangent_apply", "ell_spmv"):
+        rec.setdefault(name, [])
+    dens = ns.adjoint
+    me64 = ns._me64
+    sts = {}
+    # K2's f32 tolerance (TOL["f32_stencil"]): the entries sum products of
+    # the f32 jet-Jacobians, formed by dual numbers in the kernel and by
+    # jacfwd in the plain version; both are held to the f64 plain matrices
+    # below, to show the difference is f32 rounding
+    E64 = element_matrices_adjoint_ref(ns.asm_b64, dens, U64, me64)
+    for tag, asm, U, tol in (
+            ("f64", ns.asm_b64, U64, TOL["f64"]),
+            ("f32", ns.asm_b32, U64.float(), TOL["f32_stencil"])):
+        me = me64.to(U.dtype)
+        args = shell_kernel_args(asm, dens, U)
+        # reads what K2 reads (not N) and me, writes E; operations as K2
+        work = (nbytes(U, *args[:1], *args[2:], me)
+                + asm.nel * 729 * U.element_size(),
+                14580.0 * asm.nel * asm.nq, U.dtype)
+        kern = (lambda a=asm, u=U, me=me: a.element_matrices_adjoint(
+            dens, u, me=me))
+        plain = (lambda a=asm, u=U, me=me: element_matrices_adjoint_ref(
+            a, dens, u, me))
+        compare(f"K2 tangent_elements {tag} nq={asm.nq}", kern, plain, tol,
+                5, 1, rec["tangent_elements"],
+                match="tangent_stencil_kernel", work=work)
+        if tag == "f32":
+            scale = float(E64.abs().max())
+            say(f"    f32 rounding: max |E - E_f64 plain| / max |E_f64|: "
+                f"kernel {float((kern() - E64).abs().max()) / scale:.3e}, "
+                f"plain {float((plain() - E64).abs().max()) / scale:.3e}")
+        sts[tag] = ns._build(asm, U)
+
+    n = ns.spline.ndof
+    g = torch.Generator().manual_seed(11)
+    for tag in ("f32", "f64"):
+        st = sts[tag]
+        dt = st.E.dtype
+        x = torch.randn(n, generator=g, dtype=torch.float64).to(U64.device,
+                                                                   dt)
+        m = ns.mask64.to(dt)
+        es = st.E.element_size()
+        nel, nloc = st.conn.shape
+        for what in ("apply", "masked", "diagonal"):
+            if what == "diagonal":
+                kern = (lambda st=st: sparse.elem_tangent_diagonal(
+                    st.conn, st.E, n))
+                plain = (lambda st=st: sparse.elem_tangent_diagonal_ref(
+                    st.conn, st.E, n))
+                # reads the diagonals of E and conn, writes d
+                work = (nel * nloc * (es + 4) + n * es, float(nel * nloc),
+                        dt)
+            else:
+                mk = m if what == "masked" else None
+                kern = (lambda st=st, x=x, mk=mk: sparse.elem_tangent_apply(
+                    st.conn, st.E, x, mk))
+                plain = (lambda st=st, x=x, mk=mk:
+                         sparse.elem_tangent_apply_ref(st.conn, st.E, x, mk))
+                # reads E, conn, x (and the mask), writes y
+                work = (nbytes(st.E, st.conn, x, x)
+                        + (n * es if mk is not None else 0),
+                        2.0 * nel * nloc * nloc, dt)
+            compare(f"K10 elem_tangent {what} {tag} nel={nel}", kern, plain,
+                    TOL[tag], 50, 5, rec["elem_tangent_apply"],
+                    match="elem_", work=work)
+            if what == "masked":
+                # the BC'd operator: masked E plus the unit diagonal at
+                # the constrained DoFs
+                ar = torch.arange(n, device=x.device, dtype=torch.int32)
+                rows = torch.cat([st.conn[:, :, None].expand(-1, -1, nloc)
+                                  .reshape(-1), ar])
+                cols = torch.cat([st.conn[:, None, :].expand(-1, nloc, -1)
+                                  .reshape(-1), ar])
+                A = csr_of(rows, cols, torch.cat([st.E.reshape(-1), 1.0 - m]),
+                           (n, n))
+                yk = kern()
+                lib_err = float((A @ x - yk).abs().max() / yk.abs().max())
+                rec["elem_tangent_apply"][-1]["library_ms"] = cuda_ms(
+                    lambda A=A, x=x: A @ x, 50)
+                say(f"    library yardstick torch.sparse CSR @ x ({A._nnz()} "
+                    f"entries) {tag}: "
+                    f"{rec['elem_tangent_apply'][-1]['library_ms']:.4f} ms, "
+                    f"rel diff {lib_err:.1e}")
+
+    # the SA hierarchy of the f32 tangent (host setup timed on its own)
+    ns._sa = None
+    t0 = time.perf_counter()
+    sa = ns._ensure_sa(sts["f32"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    say(f"SA hierarchy: levels {sa.level_sizes}, host setup "
+        f"{setup_s:.3f} s (scipy aggregation, QR, Galerkin products)")
+    for l, lv in enumerate(sa._levels):
+        nl = lv.A_cols.shape[0]
+        nc = sa.level_sizes[l + 1]
+        for op, cols, vals, ncol in (("A", lv.A_cols, lv.A_vals, nl),
+                                     ("P", lv.P_cols, lv.P_vals, nc),
+                                     ("Pt", lv.Pt_cols, lv.Pt_vals, nl)):
+            x, b = (torch.randn(k, generator=g, dtype=torch.float64)
+                    .to(U64.device, torch.float32)
+                    for k in (ncol, cols.shape[0]))
+            modes = ("apply", "residual", "jacobi") if op == "A" \
+                else ("apply",)
+            for mode in modes:
+                a = (cols, vals, x, b, lv.om_dinv, mode)
+                extra = {"apply": 0, "residual": 1, "jacobi": 2}[mode]
+                # reads cols, vals, x (and b, om_dinv), writes y
+                work = (nbytes(cols, vals, x) + (1 + extra) * 4 * cols.shape[0]
+                        + (4 * cols.shape[0] if mode == "jacobi" else 0),
+                        2.0 * vals.numel(), torch.float32)
+                compare(f"K11 ell_spmv {op} {mode} f32 level {l} "
+                        f"n={cols.shape[0]} K={cols.shape[1]}",
+                        lambda a=a: sparse.ell_spmv(*a),
+                        lambda a=a: sparse.ell_spmv_ref(*a),
+                        TOL["f32"], 50, 5, rec["ell_spmv"],
+                        match="ell_spmv_kernel", work=work)
+                if mode == "apply":
+                    rr = torch.arange(cols.shape[0], device=x.device)
+                    rr = rr[:, None].expand_as(cols).reshape(-1)
+                    A = csr_of(rr, cols.reshape(-1), vals.reshape(-1),
+                               (cols.shape[0], ncol))
+                    rec["ell_spmv"][-1]["library_ms"] = cuda_ms(
+                        lambda A=A, x=x: A @ x, 50)
+    return setup_s
+
+
+def sa_main_path(ns, U_stencil, setup_s):
+    """The best of 3 warm f32 SANewton steps, then the full solve with
+    every launch count reset just before it and read just after; its U
+    against the StencilNewton solution of the same problem."""
+    from tigar_tpu_torch.ops import cuda_ext
+    ndof = ns.spline.ndof
+    U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
+    ns._sa = None
+    U1, rn, _ = ns.step(U0)                    # warm-up (builds the SA)
+    float(rn)
+    best = best_of_3(lambda: ns.step(U1))
+    say(f"SANewton production (f32) newton step (frozen hierarchy "
+        f"{ns._sa.level_sizes}): best of 3 {best * 1e3:.3f} ms "
+        f"({ndof / best:.4e} DoF/s); one host SA setup {setup_s:.3f} s")
+    ns._sa, ns._st64 = None, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usol, rel64, nsteps, dU_rel = ns.solve(rtol=1e-10, log=say)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = cuda_ext.counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = float((Usol - U_stencil).abs().max() / U_stencil.abs().max())
+    say(f"SANewton full solve: {t_solve:.3f} s, {nsteps} steps, f64 rel "
+        f"|r| = {rel64:.3e}, |dU|/|U| = {dU_rel:.3e}; peak device memory "
+        f"{peak_gb:.3f} GiB; max |U_SA - U_stencil| / max |U_stencil| "
+        f"{err:.3e} (bound 1e-7)")
+    say(f"SANewton main-path kernel launches: {launches}")
+    if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
+        raise SystemExit("SANewton solution is not finite or has the wrong "
+                         "shape")
+    need = ("shell_residual", "tangent_elements", "elem_tangent_apply",
+            "ell_spmv")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"SANewton main path never launched {missing}")
+    shell_certificate(ns, Usol, rel64, dU_rel, "SANewton")
+    if not err <= 1e-7:
+        raise SystemExit("SANewton solution differs from StencilNewton's "
+                         f"by {err:.3e} > 1e-7")
+    return Usol, launches
+
+
+def sa_reference(device):
+    """tests/test_newton_sa.py's 8x8 plate and options (q=100 here),
+    solved on the card and through the plain versions on the CPU."""
+    from tigar_tpu_torch.models.shell import SVKShellAdjoint
+    dens = SVKShellAdjoint(E_MOD, NU, H_TH, load=(0.0, 0.0, -Q))
+    ns_g, ns_c = (sa_solver(build_spline(8, d), dens, SA_REF)
+                  for d in (device, "cpu"))
+    Ug, relg, itg, _ = ns_g.solve(rtol=1e-9)
+    Uc, relc, itc, _ = ns_c.solve(rtol=1e-9)
+    err = float((Ug.cpu() - Uc).abs().max() / Uc.abs().max())
+    say(f"SANewton small-input reference (nel=8, levels "
+        f"{ns_g._sa.level_sizes}): card {itg} steps rel {relg:.3e}, CPU "
+        f"plain {itc} steps rel {relc:.3e}, max rel diff of U {err:.3e}")
+    if not (err <= 1e-8 and relg <= 1e-9 and abs(itg - itc) <= 1):
+        raise SystemExit("SANewton small-input reference FAILED")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -1134,11 +1402,10 @@ def main():
           flush=True)
 
     from tigar_tpu_torch.ops import cuda_ext
-    from tigar_tpu_torch.ops.assembly import residual_vector_adjoint_ref
 
     cuda_ext.load()
     say(f"kernel build: {cuda_ext.build_seconds:.1f} s "
-        f"(7 .cu + bindings.cpp, sm_90a)")
+        f"({len(cuda_ext.SOURCES) - 1} .cu + bindings.cpp, sm_90a)")
 
     t0 = time.time()
     ns, mg_sizes = build_solver(NEL, device)
@@ -1180,19 +1447,7 @@ def main():
         raise SystemExit(f"main path never launched {missing}")
 
     # -- floor certificate: the CPU twin of K1 on the same state -----------
-    r0_64 = ns.true_rel_residual(torch.zeros_like(Usol))
-    asm_cpu = ns.asm64.to("cpu")
-    r_cpu = ns.mask64.cpu() * residual_vector_adjoint_ref(
-        asm_cpu, ns.adjoint, Usol.cpu())
-    cpu_rel = float(torch.linalg.norm(r_cpu)) / r0_64
-    floor_ok = bool(rel64 <= 3.0 * max(cpu_rel, 1e-16) and rel64 <= 1e-8
-                    and dU_rel <= 1e-10)
-    f64_ok = bool(rel64 <= 1e-10) or floor_ok
-    say(f"floor certificate: rel64 {rel64:.3e}, CPU-twin f64 rel "
-        f"{cpu_rel:.3e}, |dU|/|U| {dU_rel:.3e}: floor_certified={floor_ok}, "
-        f"f64_accurate={f64_ok}")
-    if not f64_ok:
-        raise SystemExit("floor certificate FAILED")
+    shell_certificate(ns, Usol, rel64, dU_rel)
 
     # -- the Poisson main path, with every launch count reset ---------------
     pb, _, err96, launches["sumfac_apply"] = poisson_main_path(device)
@@ -1238,6 +1493,20 @@ def main():
     for k in nit_kernels:
         launches[k] = l_nit[k]
 
+    # -- the SANewton path on the same shell: element tangents (K2's element
+    # mode, K10) and the smoothed-aggregation cycle (K11) -----------------
+    t0 = time.time()
+    ns_sa = sa_solver(ns.spline, ns.adjoint)
+    say(f"SANewton setup (spline shared with the shell path): "
+        f"{time.time() - t0:.2f} s; options {SA_OPTS}")
+    setup_sa = sa_kernel_phases(ns_sa, smooth_state(ns), rec)
+    Usa, l_sa = sa_main_path(ns_sa, Usol, setup_sa)
+    sa_kernels = ("tangent_elements", "elem_tangent_apply", "ell_spmv")
+    by_path["sa_newton"] = {k: l_sa[k]
+                            for k in ("shell_residual",) + sa_kernels}
+    for k in sa_kernels:
+        launches[k] = l_sa[k]
+
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
     best_polish = best_of_3(lambda: ns.polish_step(U1))
@@ -1266,6 +1535,14 @@ def main():
         f"CUDA-event time")
     say("two-patch Nitsche profile:")
     profile_steps(ns_nit, Unit, {"polish step": nit_polish})
+    sa_step = best_of_3(lambda: ns_sa.step(Usa))
+    sa_polish = best_of_3(lambda: ns_sa.polish_step(Usa))
+    say(f"SANewton steps at the solution: production (f32) best of 3 "
+        f"{sa_step * 1e3:.3f} ms, polish (frozen tangents and hierarchy) "
+        f"{sa_polish * 1e3:.3f} ms")
+    say("SANewton profile:")
+    profile_steps(ns_sa, Usa, {"production step": sa_step,
+                               "polish step": sa_polish})
 
     # -- small-input reference: card against the CPU twins ----------------
     ns_g, _ = build_solver(8, device, cg_iters=40)
@@ -1280,6 +1557,7 @@ def main():
 
     two_patch_reference(device)
     two_patch_reference(device, "nitsche")
+    sa_reference(device)
 
     poisson_checks(device, pb, err96)
 
@@ -1301,7 +1579,13 @@ def main():
            "nitsche_iface_residual": ("tigar_tpu_torch/csrc/shell_nitsche.cu",
                                       "tigar_tpu/interface.py:711"),
            "nitsche_iface_tangent": ("tigar_tpu_torch/csrc/shell_nitsche.cu",
-                                     "tigar_tpu/interface.py:684")}
+                                     "tigar_tpu/interface.py:684"),
+           "tangent_elements": ("tigar_tpu_torch/csrc/tangent_stencil.cu",
+                                "tigar_tpu/solvers/newton_sa.py:297"),
+           "elem_tangent_apply": ("tigar_tpu_torch/csrc/elem_tangent.cu",
+                                  "tigar_tpu/solvers/newton_sa.py:132"),
+           "ell_spmv": ("tigar_tpu_torch/csrc/ell_spmv.cu",
+                        "tigar_tpu/solvers/aggregation.py:356")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
@@ -1310,7 +1594,10 @@ def main():
             "sumfac_apply": f"f32 {NEL3}^3", "iface_block": "f32",
             "shell_iface_residual": "f32", "shell_iface_tangent": "f32",
             "nitsche_iface_residual": f"f32 nq={cpl_nit.wq.numel()}",
-            "nitsche_iface_tangent": f"f32 nq={cpl_nit.wq.numel()}"}
+            "nitsche_iface_tangent": f"f32 nq={cpl_nit.wq.numel()}",
+            "tangent_elements": f"f32 nq={ns_sa.asm_b32.nq}",
+            "elem_tangent_apply": "masked f32",
+            "ell_spmv": "P apply f32 level 0"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]

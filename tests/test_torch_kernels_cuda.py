@@ -2,8 +2,9 @@
 twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
 small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
 element range and K5-K9 on the small two-patch plate and the three-patch
-L of the CPU tests).  Every test skips without a CUDA device; run them on
-a GPU machine with
+L of the CPU tests; K2's element mode, K10 and K11, and the SANewton path
+through them, on the nel=8 plate).  Every test skips without a CUDA
+device; run them on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -446,3 +447,178 @@ def test_nitsche_kernels_refuse_other_densities(cuda):
         user.tangent_block(U)
     with pytest.raises(TypeError):
         _nitsche(sp, 4).residual(U.float())
+
+
+# -- K2's element mode, K10 and K11: the space-agnostic Newton tier --------
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_tangent_elements_kernel(cuda, masked, dtype, tol):
+    from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
+    spline = _build(8, cuda)
+    asm = spline._assembler("dx").astype(dtype)
+    U = _state(spline, amp=0.01).to(dtype)
+    me = spline.mask.to(dtype)[asm.cat_conn] if masked else None
+    cuda_ext.reset_counts()
+    E_k = asm.element_matrices_adjoint(DENSITY, U, me=me)
+    assert cuda_ext.counts()["tangent_elements"] == 1
+    E_t = element_matrices_adjoint_ref(asm, DENSITY, U, me)
+    torch.cuda.synchronize()
+    assert E_k.shape == (asm.nel, 27, 27) and E_k.dtype == dtype
+    assert _rel(E_k, E_t) <= tol
+
+
+def _elem_case(cuda, dtype):
+    from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
+    spline = _build(8, cuda)
+    asm = spline._assembler("dx")
+    me = spline.mask[asm.cat_conn]
+    E = element_matrices_adjoint_ref(asm, DENSITY, _state(spline, amp=0.01),
+                                     me)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(spline.ndof, generator=g, dtype=torch.float64)
+    return (asm.cat_conn.contiguous(), E.to(dtype), x.to(cuda, dtype),
+            spline.mask.to(dtype))
+
+
+@pytest.mark.parametrize("what", ["apply", "masked", "diagonal"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_elem_tangent_kernel(cuda, what, dtype, tol):
+    from tigar_tpu_torch.ops import sparse
+    conn, E, x, m = _elem_case(cuda, dtype)
+    cuda_ext.reset_counts()
+    if what == "diagonal":
+        y_k = sparse.elem_tangent_diagonal(conn, E, x.numel())
+        y_t = sparse.elem_tangent_diagonal_ref(conn, E, x.numel())
+        name = "elem_tangent_diagonal"
+    else:
+        mask = m if what == "masked" else None
+        y_k = sparse.elem_tangent_apply(conn, E, x, mask)
+        y_t = sparse.elem_tangent_apply_ref(conn, E, x, mask)
+        name = "elem_tangent_apply"
+    torch.cuda.synchronize()
+    assert cuda_ext.counts()[name] == 1
+    assert y_k.dtype == dtype and _rel(y_k, y_t) <= tol
+
+
+def _sa_hierarchy(cuda, fine=False):
+    """The multilevel SA hierarchy of the nel=8 plate's BC'd f32 tangent
+    (coarse_size 50: three levels, linear near-kernel)."""
+    from tigar_tpu_torch.solvers.newton_sa import SANewton
+    ns = SANewton(_build(8, cuda), DENSITY, sa_kwargs={"coarse_size": 50})
+    st = ns._build(ns.asm32, _state(ns.spline, amp=0.01).float())
+    sa = ns._ensure_sa(st)
+    if not fine:
+        sa._fine = None
+    return ns, sa
+
+
+@pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_ell_spmv_kernel(cuda, mode, dtype, tol):
+    from tigar_tpu_torch.ops import sparse
+    _, sa = _sa_hierarchy(cuda)
+    g = torch.Generator().manual_seed(3)
+    for lv in sa._levels:
+        for cols, vals in ((lv.A_cols, lv.A_vals), (lv.P_cols, lv.P_vals),
+                           (lv.Pt_cols, lv.Pt_vals)):
+            square = cols is lv.A_cols
+            if mode != "apply" and not square:
+                continue
+            n = cols.shape[0]
+            ncol = n if square else int(cols.max()) + 1
+            x, b = (torch.randn(k, generator=g, dtype=torch.float64)
+                    .to(cuda, dtype) for k in (ncol, n))
+            args = (cols, vals.to(dtype), x, b, lv.om_dinv.to(dtype), mode)
+            cuda_ext.reset_counts()
+            y_k = sparse.ell_spmv(*args)
+            y_t = sparse.ell_spmv_ref(*args)
+            torch.cuda.synchronize()
+            assert cuda_ext.counts()["ell_spmv"] == 1
+            assert y_k.shape == (n,) and _rel(y_k, y_t) <= tol
+
+
+def test_sa_cycle_runs_through_kernels(cuda):
+    """One V-cycle with the f32 fine tangent: K10 on level 0, K11 below.
+    The card's cycle and the plain versions' on the CPU are both held to
+    the same cycle in f64 (on the CPU): an f32 cycle amplifies rounding,
+    and over 240 random inputs both sat up to 2e-5 from it (K10's atomics
+    alone move the card's result 1.5e-5 from run to run), so the bound is
+    1e-4; each kernel is held to 1e-5 on its own above."""
+    from tigar_tpu_torch.solvers.aggregation import (MultilevelSA, SALevel,
+                                                     _mlsa_apply)
+    from tigar_tpu_torch.solvers.newton_sa import ElemTangent
+    ns, sa = _sa_hierarchy(cuda, fine=True)
+    fop, fmask = sa._fine
+    levels = [SALevel(*(t.cpu() for t in lv)) for lv in sa._levels]
+    fine = ElemTangent(fop.conn.cpu(), fop.E.cpu(), fop.ndof)
+    cpu = MultilevelSA(levels, sa._coarse_inv.cpu(), sa._ndof, sa._n_smooth,
+                       fine_op=fine, fine_mask=fmask.cpu())
+    r = ns.mask32 * torch.randn(ns.spline.ndof, device=cuda)
+    cuda_ext.reset_counts()
+    z = sa(r)
+    torch.cuda.synchronize()
+    c = cuda_ext.counts()
+    assert c["elem_tangent_apply"] > 0 and c["ell_spmv"] > 0, c
+    z64 = _mlsa_apply(
+        [SALevel(*(t.double() if t.is_floating_point() else t for t in lv))
+         for lv in levels], sa._coarse_inv.cpu().double(),
+        (ElemTangent(fine.conn, fine.E.double(), fine.ndof),
+         fmask.cpu().double()), r.cpu().double(), sa._n_smooth, 1)
+    err_card, err_cpu = _rel(z.cpu().double(), z64), _rel(cpu(r.cpu()), z64)
+    assert err_card <= 1e-4 and err_cpu <= 1e-4, (err_card, err_cpu)
+
+
+def test_sa_newton_path_runs_through_kernels(cuda):
+    """SANewton's production and polish steps on the nel=8 plate launch
+    K1, K2's element mode, K10 and K11, and the solve matches the CPU
+    plain versions."""
+    from tigar_tpu_torch.solvers.newton_sa import SANewton
+    opts = dict(cg_iters=60, polish_cg_iters=80,
+                sa_kwargs={"coarse_size": 100})
+    ns = SANewton(_build(8, cuda), DENSITY, **opts)
+    cuda_ext.reset_counts()
+    U, rel64, nit, _ = ns.solve(rtol=1e-9)
+    torch.cuda.synchronize()
+    c = cuda_ext.counts()
+    for k in ("shell_residual", "tangent_elements", "elem_tangent_apply",
+              "ell_spmv"):
+        assert c[k] > 0, (k, c)
+    assert c["tangent_stencil"] == 0 and c["stencil_apply"] == 0
+    ns_c = SANewton(_build(8, "cpu"), DENSITY, **opts)
+    Uc, relc, itc, _ = ns_c.solve(rtol=1e-9)
+    assert rel64 < 1e-9 and abs(nit - itc) <= 1
+    assert _rel(U.cpu(), Uc) <= 1e-8
+
+
+def test_sa_kernels_refuse_what_they_cannot_take(cuda):
+    """A CUDA tensor of a shape or type the kernels do not take raises;
+    nothing falls back to the plain versions."""
+    from tigar_tpu_torch.ops import sparse
+    conn, E, x, m = _elem_case(cuda, torch.float64)
+    with pytest.raises(TypeError):
+        sparse.elem_tangent_apply(conn, E, x.float())
+    with pytest.raises(ValueError, match="do not match"):
+        sparse.elem_tangent_apply(conn.long(), E, x)
+    big = torch.zeros((1, 65), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        sparse.elem_tangent_apply(big, torch.zeros((1, 65, 65), device=cuda,
+                                                   dtype=torch.float64), x)
+    cols = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="needs b"):
+        sparse.ell_spmv(cols, vals, torch.zeros(4, device=cuda),
+                        mode="residual")
+    with pytest.raises(ValueError, match="do not match"):
+        sparse.ell_spmv(cols, vals[:, :2].contiguous(),
+                        torch.zeros(4, device=cuda))
+    spline = _build(8, cuda)
+    asm = spline._assembler("dx")
+    with pytest.raises(ValueError, match="me must be"):
+        asm.element_matrices_adjoint(DENSITY, _state(spline),
+                                     me=torch.ones((2, 27), device=cuda,
+                                                   dtype=torch.float64))

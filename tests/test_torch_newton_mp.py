@@ -9,11 +9,20 @@ solver-level parity):
     DoFs: 1e-12 (f64, Schwarz inverses in f64 on both sides);
   - MultiPatchProlong up and down against tigar_tpu's, built from its own
     insertion matrices: 1e-14;
-  - _lam_max_jacobi from the same x0 on the same operator: 1e-8.
+  - _lam_max_jacobi from the same x0 on the same operator: 1e-8;
+  - one V-cycle over all three levels on identical level data, through one
+    MG-CG iteration of each package's make_stencil_mgcg (x1 = alpha M(b)):
+    1e-12 in f64; in f32 the direction of x1 agrees within three times
+    the larger of the two packages' own f32 rounding of it (each one's
+    f32 cycle against its f64 cycle on the same data).  This is how the
+    bench's penalty point's first f32 step was traced (ROADMAP C1): every
+    quantity agrees to f32 rounding, the f32 cycles of both packages sit
+    4e-5 from the exact one, and the CG step lengths amplify that.
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -148,6 +157,77 @@ def test_lam_max_matches_jax(operators):
     lam_j = float(jmp._lam_max_jacobi(opj, jnp.asarray(ns.mask64.numpy()),
                                       jnp.asarray(x0)))
     assert abs(lam_t - lam_j) <= 1e-8 * lam_j
+
+
+def _jax_prolongs():
+    """tigar_tpu's level transfers of the two-patch setting, built from its
+    own bases and insertion matrices as in test_prolong_matches_jax."""
+    from tigar_tpu.models.bspline import TensorBSplineBasis
+    from tigar_tpu.models.multipatch import MultiPatchBSplineBasis
+    from tigar_tpu.ops.knots import uniform_knots
+    from tigar_tpu.solvers.multigrid import insertion_matrix_1d
+    bases = [MultiPatchBSplineBasis([
+        TensorBSplineBasis([2, 2], [uniform_knots(2, 0.0, 1.0, nx),
+                                    uniform_knots(2, 0.0, 1.0, ny)])
+        for ny in (nay, nby)]) for nx, nay, nby in MP_LEVELS]
+    out = []
+    for bf, bc in zip(bases[:-1], bases[1:]):
+        Ps = [tuple(jnp.asarray(insertion_matrix_1d(kc, kf))
+                    for kc, kf in zip(reversed(pc.kvs), reversed(pf.kvs)))
+              for pf, pc in zip(bf.patches, bc.patches)]
+        shapes = [[tuple(kv.ncp for kv in reversed(pt.kvs))
+                   for pt in b.patches] for b in (bf, bc)]
+        out.append(jmp.MultiPatchProlong(
+            Ps, 3, shapes[0], shapes[1], [f * bf.ncp for f in range(3)],
+            [f * bc.ncp for f in range(3)], bf.doffsets, bc.doffsets))
+    return out
+
+
+def _cast(tree, dtype):
+    """A tigar_tpu pytree with its floating leaves in ``dtype``."""
+    return jax.tree_util.tree_map(
+        lambda a: a.astype(dtype) if jnp.issubdtype(a.dtype, jnp.floating)
+        else a, tree)
+
+
+def test_vcycle_matches_jax(operators):
+    """One V-cycle (fine f32 build at a state, the zero-state coarse
+    levels, the dense coarsest inverse) on identical data in both
+    packages, seen through one MG-CG iteration: see the module
+    docstring."""
+    from tigar_tpu.solvers.newton_stencil import make_stencil_mgcg as jmgcg
+    from tigar_tpu_torch.solvers.newton_stencil import (
+        make_stencil_mgcg as tmgcg)
+    ns, op32 = operators["two_patch"]
+    ops = [op32] + list(ns._coarse_sts)
+    masks = [ns.mask32] + list(ns._coarse_masks)
+    dinvs = [ns._fine_dinv(op32)] + list(ns._coarse_dinvs)
+    b = masks[0].numpy() * np.random.default_rng(7).normal(size=op32.ndof)
+    x1 = {}
+    arrays = [_f64_arrays(op) for op in ops]   # f32 values, held in f64
+    cinv = ns._coarse_inv.numpy()
+    for tdt, jdt in ((F64, jnp.float64), (F32, jnp.float32)):
+        x1["port", tdt] = tmgcg(len(ops), n_iters=1)(
+            [convert.mp_operator_from_numpy(
+                dict(a, Sinv=[Si.astype(np.float32 if tdt == F32 else
+                                        np.float64) for Si in a["Sinv"]]),
+                "cpu", tdt) for a in arrays],
+            [m.to(tdt) for m in masks], [d.to(tdt) for d in dinvs], ns._Ps,
+            torch.as_tensor(cinv, dtype=tdt), torch.as_tensor(b, dtype=tdt))
+        x1["jax", tdt] = jmgcg(len(ops), n_iters=1)(
+            _cast([_jax_operator(a) for a in arrays], jdt),
+            [jnp.asarray(m.numpy(), dtype=jdt) for m in masks],
+            [jnp.asarray(d.numpy(), dtype=jdt) for d in dinvs],
+            _cast(_jax_prolongs(), jdt),
+            jnp.asarray(cinv, dtype=jdt), jnp.asarray(b, dtype=jdt))
+    assert rel(x1["port", F64], x1["jax", F64]) <= 1e-12
+
+    def unit(x):
+        x = np.asarray(x, dtype=np.float64)
+        return x / np.linalg.norm(x)
+    own = max(rel(unit(x1[p, F32]), unit(x1[p, F64])) for p in ("port", "jax"))
+    assert 0.0 < own <= 1e-3
+    assert rel(unit(x1["port", F32]), unit(x1["jax", F32])) <= 3.0 * own
 
 
 def test_solver_checks_its_arguments(port):

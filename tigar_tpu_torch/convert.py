@@ -15,7 +15,9 @@ no jax import here) — into a dict of numpy arrays:
 same for stencils.  ``mp_operator_arrays``/``mp_operator_from_numpy`` carry
 a multi-patch operator (per-patch stencils, interface blocks idx, K, Sinv)
 and ``interface_arrays``/``interface_from_numpy`` an interface form (both
-sides' SideData, wq, nu, w_param, surfJ, params).  Tests use them to feed
+sides' SideData, wq, nu, w_param, surfJ, params), ``mlsa_arrays``/
+``mlsa_from_numpy`` a smoothed-aggregation hierarchy and
+``elem_tangent_from_numpy`` an element-batch tangent.  Tests use them to feed
 identical inputs to the JAX functions and to this package's kernels and
 twins, independent of either package's own preprocessing.
 """
@@ -197,3 +199,49 @@ def interface_from_numpy(arrays, cls, density, ndof, device="cuda",
     form._pos = None
     return form
 
+
+
+_SA_LEVEL = ("A_cols", "A_vals", "om_dinv", "P_cols", "P_vals", "Pt_cols",
+             "Pt_vals")
+
+
+def mlsa_arrays(sa):
+    """numpy arrays of a multilevel SA hierarchy (this package's or
+    tigar_tpu's ``MultilevelSA``): per level the ELL operator,
+    prolongation and transpose (cols, vals) and om_dinv; the coarsest
+    inverse, n_smooth, the cycle and ndof.  The fine operator, when the
+    hierarchy has one, is not carried."""
+    return {"levels": [{k: _np(a) for k, a in zip(_SA_LEVEL, lv)}
+                       for lv in sa._levels],
+            "coarse_inv": _np(sa._coarse_inv), "ndof": int(sa._ndof),
+            "n_smooth": int(sa._n_smooth), "cycle": str(sa._cycle)}
+
+
+def mlsa_from_numpy(arrays, device="cuda", fine_op=None, fine_mask=None):
+    """This package's MultilevelSA from ``mlsa_arrays`` output (cols
+    int32, values float32, as the cycle computes), with an optional BC'd
+    fine operator for level 0."""
+    from .solvers.aggregation import MultilevelSA
+    device = resolve_device(device)
+
+    def t(k, a):
+        dt = torch.int32 if k.endswith("cols") else torch.float32
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    levels = [tuple(t(k, lv[k]) for k in _SA_LEVEL)
+              for lv in arrays["levels"]]
+    return MultilevelSA(levels, t("coarse_inv", arrays["coarse_inv"]),
+                        arrays["ndof"], arrays["n_smooth"],
+                        cycle=arrays["cycle"], fine_op=fine_op,
+                        fine_mask=fine_mask)
+
+
+def elem_tangent_from_numpy(conn, E, ndof, device="cuda",
+                            dtype=torch.float64):
+    """This package's ElemTangent from numpy connectivity [nel, nloc] and
+    element matrices [nel, nloc, nloc]."""
+    from .solvers.newton_sa import ElemTangent
+    device = resolve_device(device)
+    return ElemTangent(
+        torch.as_tensor(np.array(conn, dtype=INDEX_TYPE), device=device),
+        torch.as_tensor(np.array(E), dtype=dtype, device=device), ndof)

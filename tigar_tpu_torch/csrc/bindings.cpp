@@ -149,6 +149,140 @@ torch::Tensor tangent_stencil(torch::Tensor U, torch::Tensor conn,
   return S;
 }
 
+torch::Tensor tangent_elements(torch::Tensor U, torch::Tensor conn,
+                               torch::Tensor N, torch::Tensor dN,
+                               torch::Tensor d2N, torch::Tensor scale,
+                               torch::Tensor DF, torch::Tensor d2F,
+                               torch::Tensor ra, torch::Tensor rb,
+                               torch::Tensor ea, std::vector<double> consts,
+                               std::optional<torch::Tensor> me) {
+  const auto a = check_shell(U, conn, N, dN, d2N, scale, DF, d2F, ra, rb, ea);
+  TORCH_CHECK(consts.size() == 4, "tangent_elements takes 4 constants");
+  TORCH_CHECK(a.nq >= 1 && a.nq <= 9, "tangent_elements takes at most 9 "
+              "quadrature points, got ", a.nq);
+  if (me) check(*me, "me", U.scalar_type(), {a.nel, 27});
+  const c10::cuda::CUDAGuard guard(U.device());
+  auto E = torch::empty({a.nel, 27, 27}, U.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (U.scalar_type() == torch::kFloat) {
+    using T = float;
+    err = tigar::tangent_elements_launch<T>(
+        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
+        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
+        ptr<T>(rb), ptr<T>(ea), consts.data(), me ? ptr<T>(*me) : nullptr,
+        E.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::tangent_elements_launch<T>(
+        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
+        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
+        ptr<T>(rb), ptr<T>(ea), consts.data(), me ? ptr<T>(*me) : nullptr,
+        E.data_ptr<T>(), stream);
+  }
+  check_launch(err, "tangent_elements");
+  return E;
+}
+
+torch::Tensor elem_tangent_apply(torch::Tensor conn, torch::Tensor E,
+                                 torch::Tensor x,
+                                 std::optional<torch::Tensor> mask) {
+  const auto dt = E.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(conn.dim() == 2 && x.dim() == 1, "conn [nel, nloc], x [ndof]");
+  const int64_t nel = conn.size(0), nloc = conn.size(1), ndof = x.size(0);
+  TORCH_CHECK(nloc >= 1 && nloc <= 64, "at most 64 local functions");
+  TORCH_CHECK(ndof < (int64_t(1) << 31) && nel < (int64_t(1) << 31),
+              "too many DoFs or elements");
+  check(conn, "conn", torch::kInt, {nel, nloc});
+  check(E, "E", dt, {nel, nloc, nloc});
+  check(x, "x", dt, {ndof});
+  if (mask) check(*mask, "mask", dt, {ndof});
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = torch::empty_like(x);
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::elem_tangent_apply_launch<T>(
+        nel, nloc, ndof, conn.data_ptr<int>(), ptr<T>(E), ptr<T>(x),
+        mask ? ptr<T>(*mask) : nullptr, y.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::elem_tangent_apply_launch<T>(
+        nel, nloc, ndof, conn.data_ptr<int>(), ptr<T>(E), ptr<T>(x),
+        mask ? ptr<T>(*mask) : nullptr, y.data_ptr<T>(), stream);
+  }
+  check_launch(err, "elem_tangent_apply");
+  return y;
+}
+
+torch::Tensor elem_tangent_diagonal(torch::Tensor conn, torch::Tensor E,
+                                    int64_t ndof) {
+  const auto dt = E.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(conn.dim() == 2, "conn must be [nel, nloc]");
+  const int64_t nel = conn.size(0), nloc = conn.size(1);
+  check(conn, "conn", torch::kInt, {nel, nloc});
+  check(E, "E", dt, {nel, nloc, nloc});
+  TORCH_CHECK(ndof >= 0 && ndof < (int64_t(1) << 31), "bad ndof ", ndof);
+  const c10::cuda::CUDAGuard guard(E.device());
+  auto d = torch::zeros({ndof}, E.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::elem_tangent_diagonal_launch<T>(
+        nel, nloc, conn.data_ptr<int>(), ptr<T>(E), d.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::elem_tangent_diagonal_launch<T>(
+        nel, nloc, conn.data_ptr<int>(), ptr<T>(E), d.data_ptr<T>(), stream);
+  }
+  check_launch(err, "elem_tangent_diagonal");
+  return d;
+}
+
+torch::Tensor ell_spmv(torch::Tensor cols, torch::Tensor vals,
+                       torch::Tensor x, std::optional<torch::Tensor> b,
+                       std::optional<torch::Tensor> om_dinv, int64_t mode) {
+  const auto dt = vals.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(cols.dim() == 2 && x.dim() == 1, "cols [n, K], x a vector");
+  const int64_t n = cols.size(0), K = cols.size(1);
+  TORCH_CHECK(K >= 1 && n * K < (int64_t(1) << 40), "bad ELL shape");
+  TORCH_CHECK(n < (int64_t(1) << 31) && x.size(0) < (int64_t(1) << 31),
+              "too many rows");
+  check(cols, "cols", torch::kInt, {n, K});
+  check(vals, "vals", dt, {n, K});
+  check(x, "x", dt, {x.size(0)});
+  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
+  TORCH_CHECK(mode == 0 || b, "mode ", mode, " needs b");
+  TORCH_CHECK(mode != 2 || (om_dinv && x.size(0) == n),
+              "mode 2 needs om_dinv and a square operator");
+  if (b) check(*b, "b", dt, {n});
+  if (om_dinv) check(*om_dinv, "om_dinv", dt, {n});
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = torch::empty({n}, x.options());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::ell_spmv_launch<T>(
+        n, K, cols.data_ptr<int>(), ptr<T>(vals), ptr<T>(x),
+        b ? ptr<T>(*b) : nullptr, om_dinv ? ptr<T>(*om_dinv) : nullptr,
+        (int)mode, y.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::ell_spmv_launch<T>(
+        n, K, cols.data_ptr<int>(), ptr<T>(vals), ptr<T>(x),
+        b ? ptr<T>(*b) : nullptr, om_dinv ? ptr<T>(*om_dinv) : nullptr,
+        (int)mode, y.data_ptr<T>(), stream);
+  }
+  check_launch(err, "ell_spmv");
+  return y;
+}
+
 torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
                             std::optional<torch::Tensor> mask,
                             std::optional<torch::Tensor> b,
@@ -468,13 +602,13 @@ torch::Tensor nitsche_iface_residual(std::vector<torch::Tensor> side_a,
   if (dt == torch::kFloat) {
     using T = float;
     err = tigar::nitsche_iface_residual_launch<T>(
-        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
+        (int)nq, (int)U.size(0), nitsche_side<T>(side_a, dt, nq, nullptr),
         nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
         ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
   } else {
     using T = double;
     err = tigar::nitsche_iface_residual_launch<T>(
-        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
+        (int)nq, (int)U.size(0), nitsche_side<T>(side_a, dt, nq, nullptr),
         nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
         ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
   }
@@ -546,6 +680,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("shell_residual", &shell_residual, "K1: SVK shell residual");
   m.def("tangent_stencil", &tangent_stencil,
         "K2: SVK shell tangent stencil");
+  m.def("tangent_elements", &tangent_elements,
+        "K2, element mode: masked SVK shell element matrices");
+  m.def("elem_tangent_apply", &elem_tangent_apply,
+        "K10: element-batch tangent apply, BC-masked");
+  m.def("elem_tangent_diagonal", &elem_tangent_diagonal,
+        "K10: element-batch tangent diagonal");
+  m.def("ell_spmv", &ell_spmv, "K11: ELL product / residual / Jacobi");
   m.def("stencil_apply", &stencil_apply,
         "K3: stencil apply / residual / Jacobi sweep");
 }

@@ -29,6 +29,18 @@ cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
                                    const double* consts, int ncp_y,
                                    int ncp_x, T* S, cudaStream_t stream);
 
+// K2, element mode: the same element matrices written to E [nel][27][27]
+// (every entry written, no initialisation), entry (row, col) times me[e][row]
+// me[e][col] when me [nel][27] is given.
+template <typename T>
+cudaError_t tangent_elements_launch(int nel, int nq, const int* conn,
+                                    const T* U, const T* dN, const T* d2N,
+                                    const T* scale, const T* DF,
+                                    const T* d2F, const T* ref_a,
+                                    const T* ref_b, const T* ea,
+                                    const double* consts, const T* me, T* E,
+                                    cudaStream_t stream);
+
 // K3: stencil apply.  mode 0: y = A x; 1: y = b - A x;
 // 2: y = x + (omega dinv) (b - A x); A is masked when mask != nullptr.
 // Every vector holds DoF (f, i) of the ny x nx grid at
@@ -119,10 +131,10 @@ struct NitscheSide {
 };
 
 // K8: consistent (Nitsche) SVK shell interface residual, r += dE/dU (r
-// zero-initialised).  consts = {beta_d, beta_r, w_a, w_b, lam_ps, 2 mu, h,
-// h^3/12}.
+// zero-initialised, U and r of ndof entries).  consts = {beta_d, beta_r,
+// w_a, w_b, lam_ps, 2 mu, h, h^3/12}.
 template <typename T>
-cudaError_t nitsche_iface_residual_launch(int nq, NitscheSide<T> sa,
+cudaError_t nitsche_iface_residual_launch(int nq, int ndof, NitscheSide<T> sa,
                                           NitscheSide<T> sb, const T* wq,
                                           const T* surfJ, const T* U,
                                           const double* consts, T* r,
@@ -136,5 +148,27 @@ cudaError_t nitsche_iface_tangent_launch(int nq, int m, NitscheSide<T> sa,
                                          const T* surfJ, const T* u_sub,
                                          const double* consts, T* K,
                                          cudaStream_t stream);
+
+// K10: element-batch tangent y = m * scatter(conn, E (m x)[conn]) +
+// (1 - m) x over ndof DoFs (m = 1 and no (1 - m) x term when mask is
+// nullptr); conn [nel][nloc], E [nel][nloc][nloc], nloc <= 64.
+template <typename T>
+cudaError_t elem_tangent_apply_launch(int nel, int nloc, int ndof,
+                                      const int* conn, const T* E,
+                                      const T* x, const T* mask, T* y,
+                                      cudaStream_t stream);
+
+// K10's diagonal: d += scatter(conn, diag E) (d zero-initialised).
+template <typename T>
+cudaError_t elem_tangent_diagonal_launch(int nel, int nloc, const int* conn,
+                                         const T* E, T* d,
+                                         cudaStream_t stream);
+
+// K11: ELL product over cols/vals [n][K].  mode 0: y = A x; 1: y = b - A x;
+// 2: y = x + om_dinv (b - A x).
+template <typename T>
+cudaError_t ell_spmv_launch(int n, int K, const int* cols, const T* vals,
+                            const T* x, const T* b, const T* om_dinv,
+                            int mode, T* y, cudaStream_t stream);
 
 }  // namespace tigar

@@ -22,6 +22,12 @@
 //     [ey+ay][ex+ax]; the [nel, 27, 27] element matrices never reach
 //     device memory.
 //
+// Element mode (tangent_elements_launch) replaces step 3 for the
+// space-agnostic Newton tier (tigar_tpu/solvers/newton_sa.py build_vals):
+// each entry, times the element BC mask me[e][row] me[e][col] when given,
+// is written to E[e][row][col] (plain stores, coalesced over the entry
+// index) instead of folded.
+//
 // Bound: arithmetic (dual-number passes through the adjoint and the
 // 27 x 27 x 36 nq contraction per element); reads are ~60 values per
 // point and the atomics touch 729 stencil entries per element.  The design
@@ -55,7 +61,8 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
                        const T* __restrict__ ref_a,
                        const T* __restrict__ ref_b,
                        const T* __restrict__ ea, ShellConst<T> k, int ncp_y,
-                       int ncp_x, T* __restrict__ S) {
+                       int ncp_x, T* __restrict__ S,
+                       const T* __restrict__ me, T* __restrict__ E) {
   __shared__ T Ksh[MAXQ * NS * NS];
   __shared__ T phi[MAXQ * 9 * 6];
   __shared__ T ssh[MAXQ];
@@ -141,7 +148,7 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
   }
   __syncthreads();
 
-  // 2-3. element matrix entries, folded into the stencil
+  // 2-3. element matrix entries, folded into the stencil (or written out)
   const int ey = e / nel_x, ex = e % nel_x;
   const size_t plane = (size_t)ncp_y * ncp_x;
   for (int idx = tid; idx < 27 * 27; idx += THREADS) {
@@ -162,6 +169,12 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
         sub += pa[s] * inner;
       }
       acc += ssh[q] * sub;
+    }
+    if (E != nullptr) {
+      if (me != nullptr)
+        acc = acc * me[(size_t)e * 27 + row] * me[(size_t)e * 27 + col];
+      E[(size_t)e * 729 + idx] = acc;
+      continue;
     }
     const int ay = a / 3, ax = a % 3, by = b / 3, bx = b % 3;
     const size_t o = (((size_t)(f * 3 + gf) * 5 + (by - ay + 2)) * 5
@@ -185,7 +198,24 @@ cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
   ShellConst<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3])};
   tangent_stencil_kernel<T><<<nel, THREADS, 0, stream>>>(
       nel_x, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, k,
-      ncp_y, ncp_x, S);
+      ncp_y, ncp_x, S, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t tangent_elements_launch(int nel, int nq, const int* conn,
+                                    const T* U, const T* dN, const T* d2N,
+                                    const T* scale, const T* DF,
+                                    const T* d2F, const T* ref_a,
+                                    const T* ref_b, const T* ea,
+                                    const double* c, const T* me, T* E,
+                                    cudaStream_t stream) {
+  if (nq < 1 || nq > MAXQ) return cudaErrorInvalidValue;
+  if (nel == 0) return cudaSuccess;
+  ShellConst<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3])};
+  tangent_stencil_kernel<T><<<nel, THREADS, 0, stream>>>(
+      1, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, k, 0, 0,
+      nullptr, me, E);
   return cudaGetLastError();
 }
 
@@ -197,6 +227,15 @@ template cudaError_t tangent_stencil_launch<double>(
     int, int, int, const int*, const double*, const double*, const double*,
     const double*, const double*, const double*, const double*,
     const double*, const double*, const double*, int, int, double*,
+    cudaStream_t);
+template cudaError_t tangent_elements_launch<float>(
+    int, int, const int*, const float*, const float*, const float*,
+    const float*, const float*, const float*, const float*, const float*,
+    const float*, const double*, const float*, float*, cudaStream_t);
+template cudaError_t tangent_elements_launch<double>(
+    int, int, const int*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*, double*,
     cudaStream_t);
 
 }  // namespace tigar

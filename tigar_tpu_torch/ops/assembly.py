@@ -247,38 +247,52 @@ class DomainAssembler:
             s += self.nens[f]
         return B
 
-    def element_matrices_adjoint(self, adjoint_density, U):
-        """[nel, nloc, nloc] element tangent matrices via the pointwise
-        jet-Jacobian of an adjoint-jet density:
+    def element_matrices_adjoint(self, adjoint_density, U, me=None):
+        """[nel, nloc, nloc] element tangent matrices of an adjoint-jet
+        density (tigar_tpu's ``element_matrices_adjoint``), masked on both
+        sides by the element mask ``me`` [nel, nloc] when given
+        (E * me[:, :, None] * me[:, None, :]).  CUDA tensors run kernel
+        K2's element mode (the density must be a
+        models.shell.SVKShellAdjoint); CPU tensors run
+        ``element_matrices_adjoint_ref``."""
+        if U.is_cuda:
+            return element_matrices_cuda(self, adjoint_density, U, me)
+        return element_matrices_adjoint_ref(self, adjoint_density, U, me)
 
-            K[q] = d(F_flat)/d(u_flat)  [J, J]   (torch.func.jacfwd)
-            E    = sum_q w_q B[q]^T K[q] B[q]
 
-        as tigar_tpu's ``element_matrices_adjoint``.  This is the plain
-        twin of kernel K2 (ops/stencil.build_stencil)."""
-        uj = self.jets(U)
-        nel, nq = self.nel, self.nq
-        npt = nel * nq
-        nf = self.nfields
-        d = uj.g.shape[-1]
-        u_flat = torch.cat([uj.val.reshape(npt, nf),
-                            uj.g.reshape(npt, nf * d),
-                            uj.h.reshape(npt, nf * d * d)], dim=1)
-        ctx_pts = _ctx_points(self.ctx, npt)
+def element_matrices_adjoint_ref(asm, adjoint_density, U, me=None):
+    """Plain version of kernel K2 (its stencil fold and its element mode):
+    element matrices via the pointwise jet-Jacobian of an adjoint-jet
+    density,
 
-        def point_F(uf, ctx_d):
-            ctx_q = QP(**{k: ctx_d.get(k) for k in QP._fields})
-            u = Jet(uf[:nf], uf[nf:nf + nf * d].reshape(nf, d),
-                    uf[nf + nf * d:].reshape(nf, d, d))
-            F = adjoint_density(ctx_q, u)
-            return torch.cat([F.val.reshape(-1), F.g.reshape(-1),
-                              F.h.reshape(-1)])
+        K[q] = d(F_flat)/d(u_flat)  [J, J]   (torch.func.jacfwd)
+        E    = sum_q w_q B[q]^T K[q] B[q],
 
-        K = torch.func.vmap(torch.func.jacfwd(point_F))(u_flat, ctx_pts)
-        K = K.reshape(nel, nq, K.shape[-2], K.shape[-1])
-        B = self.local_basis()
-        KB = torch.einsum("eqJK,eqKb->eqJb", K, B)
-        return torch.einsum("eqJa,eqJb,eq->eab", B, KB, self.scale)
+    masked by ``me`` on both sides when given."""
+    uj = asm.jets(U)
+    nel, nq = asm.nel, asm.nq
+    npt = nel * nq
+    nf = asm.nfields
+    d = uj.g.shape[-1]
+    u_flat = torch.cat([uj.val.reshape(npt, nf),
+                        uj.g.reshape(npt, nf * d),
+                        uj.h.reshape(npt, nf * d * d)], dim=1)
+    ctx_pts = _ctx_points(asm.ctx, npt)
+
+    def point_F(uf, ctx_d):
+        ctx_q = QP(**{k: ctx_d.get(k) for k in QP._fields})
+        u = Jet(uf[:nf], uf[nf:nf + nf * d].reshape(nf, d),
+                uf[nf + nf * d:].reshape(nf, d, d))
+        F = adjoint_density(ctx_q, u)
+        return torch.cat([F.val.reshape(-1), F.g.reshape(-1),
+                          F.h.reshape(-1)])
+
+    K = torch.func.vmap(torch.func.jacfwd(point_F))(u_flat, ctx_pts)
+    K = K.reshape(nel, nq, K.shape[-2], K.shape[-1])
+    B = asm.local_basis()
+    KB = torch.einsum("eqJK,eqKb->eqJb", K, B)
+    E = torch.einsum("eqJa,eqJb,eq->eab", B, KB, asm.scale)
+    return E if me is None else E * me[:, :, None] * me[:, None, :]
 
 
 def _ctx_points(ctx, npt):
@@ -343,6 +357,26 @@ def shell_residual_cuda(asm, density, U):
                            list(density.kernel_constants()), asm.ndof)
     cuda_ext.count("shell_residual")
     return r
+
+
+def element_matrices_cuda(asm, density, U, me=None):
+    """Kernel K2's element mode: K2's jet-Jacobians and element matrices
+    (steps 1-2), each entry masked by me[a] me[b] when ``me`` is given and
+    written to E [nel, 27, 27] instead of folded into a stencil."""
+    args = shell_kernel_args(asm, density, U)
+    if asm.nq > 9:
+        raise ValueError("the tangent kernel takes at most 9 quadrature "
+                         f"points, got {asm.nq}")
+    if me is not None and (tuple(me.shape) != (asm.nel, 27) or
+                           me.dtype != U.dtype or not me.is_cuda):
+        raise ValueError(f"me must be [{asm.nel}, 27] of U's type on the "
+                         "card")
+    ext = cuda_ext.load()
+    E = ext.tangent_elements(U.contiguous(), *args,
+                             list(density.kernel_constants()[:4]),
+                             None if me is None else me.contiguous())
+    cuda_ext.count("tangent_elements")
+    return E
 
 
 def apply_bc_matrix(A, mask, diag=1.0):

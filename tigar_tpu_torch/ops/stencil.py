@@ -280,8 +280,9 @@ def build_stencil(asm, adjoint_density, U, basis, nf):
 
 def build_stencil_ref(asm, adjoint_density, U, basis, nf):
     """Plain twin of K2: jacfwd/vmap element matrices, then the fold."""
+    from .assembly import element_matrices_adjoint_ref
     return stencil_from_element_matrices(
-        basis, asm.element_matrices_adjoint(adjoint_density, U), nf=nf)
+        basis, element_matrices_adjoint_ref(asm, adjoint_density, U), nf=nf)
 
 
 def build_stencil_cuda(asm, adjoint_density, U, basis, nf):
