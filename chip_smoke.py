@@ -2,7 +2,9 @@
 """GPU smoke run of tigar_tpu_torch on one NVIDIA card: the production
 Newton path of the clamped SVK Kirchhoff-Love shell (stencil multigrid,
 and the space-agnostic smoothed-aggregation tier), the two-patch coupled
-shells and the matrix-free 3D Poisson multigrid path.
+shells, the matrix-free 3D Poisson multigrid path and the generic form
+path (2D Poisson through user-written densities, mixed-precision
+refinement, smoothed-aggregation CG).
 
     python3 chip_smoke.py
 
@@ -93,6 +95,23 @@ Phases, each fatal on failure (nothing is caught):
      within 1e-7 of phase 3's StencilNewton solution; the small-input
      reference on tests/test_newton_sa.py's 8x8 plate (card against CPU
      plain versions: steps within 1, U within 1e-8).
+ 11. the generic form path (FEniCS-like densities through ExtractedSpline)
+     on tests/test_refinement.py's Poisson at the size of
+     tigar_tpu/ops/fastpath.py's measurement: p=2, 256^2 elements, 66,564
+     DoFs, quadrature degree 4.  K12 against its plain version (2D p=2
+     256^2, 2D p=3 32^2, 3D p=2 16^3; f32, 1e-5 of the largest entry: f32
+     atomics) and against the f64 AD tangent action (2e-6, as
+     tests/test_fastpath.py), the f32 torch.sparse CSR product as its
+     library yardstick; the f64 solve with the default options (Jacobi CG
+     of the AD tangent action); refine_solve with K12 and f32 Jacobi
+     inside (120 inner iterations) to rel < 1e-12 and within 1e-8 of it,
+     with every launch count reset just before it and read just after;
+     the L2 errors at 128^2 and 256^2 (rate > 2.7); two-level sa_cg at
+     128^2 (TwoLevelSA through K11, held to its plain coo cycle at 1e-5;
+     within 1e-8 of the 128^2 CG solution) and multilevel sa_cg at 256^2
+     (sa_levels=4, within 1e-8), counts reset around each solve; the nel=8
+     card-vs-CPU reference (direct, cg, refine_solve, sa_cg: U within
+     1e-10); the profile of one refinement sweep.
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -1388,6 +1407,331 @@ def sa_reference(device):
         raise SystemExit("SANewton small-input reference FAILED")
 
 
+# -- the generic form path: B5 (K12) under refinement, B9b (K11) -------------
+
+# tests/test_refinement.py's Poisson at the size of the fast-path
+# measurement (tigar_tpu/ops/fastpath.py:6-13): p=2, 256^2 elements,
+# 66,564 DoFs, quadrature degree 4; the two-level SA cycle at 128^2 (its
+# dense P refuses 256^2: ndof x m > 2e8)
+GP_P, GP_NEL, GP_NEL2 = 2, 256, 128
+GP_REFINE_ITERS = 120          # inner f32 CG iterations a sweep
+GP_TOL = {"k12": 1e-5, "k12_ad": 2e-6, "solution": 1e-8, "ref": 1e-10}
+
+
+def gp_spline(nel, device, p=GP_P, dim=2):
+    """The unit square (or cube), homogeneous Dirichlet on every side,
+    quadrature degree 2p (tests/test_refinement.py)."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import ExplicitBSplineControlMesh
+    from tigar_tpu_torch.models.space import EqualOrderSpline
+    from tigar_tpu_torch.models.extracted import ExtractedSpline
+    cm = ExplicitBSplineControlMesh(
+        [p] * dim, [uniform_knots(p, 0.0, 1.0, nel)] * dim)
+    sp = EqualOrderSpline(1, cm)
+    basis = sp.get_scalar_spline()
+    for d in range(dim):
+        for side in (0, 1):
+            sp.add_zero_dofs(0, basis.side_dofs(d, side))
+    return ExtractedSpline(sp, quad_degree=2 * p, device=device)
+
+
+def gp_soln(x):
+    return torch.sin(torch.pi * x[0]) * torch.sin(torch.pi * x[1])
+
+
+def gp_a(ctx, u, v):
+    return torch.sum(ctx.grad(u) * ctx.grad(v))
+
+
+def gp_L(ctx, v):
+    return 2.0 * torch.pi ** 2 * gp_soln(ctx.x) * v.val
+
+
+def gp_refine(sp, b, x0=None):
+    """refine_solve with the f64 AD operator outside and K12 (Jacobi of the
+    assembled diagonal) inside: (x, sweeps, rel)."""
+    from tigar_tpu_torch.ops.fastpath import make_laplace_operator
+    from tigar_tpu_torch.solvers.linear import jacobi_preconditioner
+    from tigar_tpu_torch.solvers.refinement import refine_solve
+    op64 = sp.matrix_operator(gp_a)
+    op32 = make_laplace_operator(sp._assembler("dx"), sp.mask)
+    M32 = jacobi_preconditioner(sp.assemble_diagonal(gp_a).float())
+    return refine_solve(op64, op32, b, tol=1e-12,
+                        inner_iters=GP_REFINE_ITERS, M_f32=M32, x0=x0)
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def fastpath_kernel_phases(sp, rec):
+    """K12 against its plain version at the path's shapes (2D p=2 256^2)
+    and at 2D p=3 32^2 and 3D p=2 16^3, and against the f64 AD tangent
+    action; the library yardstick is the same BC'd operator as one f32
+    torch.sparse CSR matrix applied with ``@``."""
+    from tigar_tpu_torch.ops import fastpath
+    rec.setdefault("laplace_apply", [])
+    dev = sp.device
+    g = torch.Generator().manual_seed(21)
+    for label, s in ((f"2D p=2 nel={GP_NEL}", sp),
+                     ("2D p=3 nel=32", gp_spline(32, dev, p=3)),
+                     ("3D p=2 nel=16", gp_spline(16, dev, dim=3))):
+        asm = s._assembler("dx")
+        A1, A2 = fastpath.laplace_layouts(asm)
+        connT = asm.conns[0].t().contiguous()
+        m32 = s.mask.float()
+        W = torch.randn(s.ndof, generator=g, dtype=torch.float64).to(dev)
+        W32 = W.float()
+        # reads A1, A2, connT, the mask and W, writes r; 2 flops a layout
+        # entry in each contraction
+        work = (nbytes(A1, A2, connT, m32, W32, W32), 4.0 * A1.numel(),
+                torch.float32)
+        compare(f"K12 laplace_apply f32 {label} nel={asm.nel} "
+                f"rows={A1.shape[0]}",
+                lambda a=(A1, A2, connT, m32, W32): fastpath.laplace_apply(*a),
+                lambda a=(A1, A2, connT, m32, W32):
+                fastpath.laplace_apply_ref(*a),
+                GP_TOL["k12"], 50, 5, rec["laplace_apply"],
+                match="laplace_", work=work)
+        ref = s.tangent_action(gp_a, torch.zeros_like(W), W)
+        out = fastpath.laplace_apply(A1, A2, connT, s.mask, W)
+        ad = float((out - ref).abs().max() / ref.abs().max())
+        say(f"    K12 against the f64 AD tangent action ({label}): max "
+            f"|diff| / max |ref| {ad:.3e} (bound {GP_TOL['k12_ad']:g})")
+        if not ad <= GP_TOL["k12_ad"]:
+            raise SystemExit(f"K12 against the AD tangent action FAILED "
+                             f"({label})")
+        if s is sp:
+            A = s.assemble_sparse(gp_a).to(torch.float32).to_sparse_csr()
+            yk = fastpath.laplace_apply(A1, A2, connT, m32, W32)
+            lib_err = rel_diff(torch.mv(A, W32), yk)
+            rec["laplace_apply"][-1]["library_ms"] = cuda_ms(
+                lambda A=A, x=W32: torch.mv(A, x), 50)
+            say(f"    library yardstick torch.sparse CSR f32 @ W "
+                f"({A._nnz()} entries): "
+                f"{rec['laplace_apply'][-1]['library_ms']:.4f} ms, rel diff "
+                f"{lib_err:.1e}")
+
+
+def twolevel_kernel_phases(pre, rec):
+    """K11 in the two-level cycle's modes on the ELL copy of its operator
+    (B9b's shape) against the plain version, with the torch.sparse CSR
+    yardstick; the whole cycle through K11 against the plain coo cycle."""
+    from tigar_tpu_torch.ops import sparse
+    rec.setdefault("ell_spmv_twolevel", [])
+    cols, vals, om = pre._ell_cols, pre._ell_vals, pre._om_dinv
+    n, K = cols.shape
+    g = torch.Generator().manual_seed(23)
+    x, b = (torch.randn(n, generator=g, dtype=torch.float64)
+            .to(vals.device, torch.float32) for _ in range(2))
+    for mode in ("jacobi", "residual"):
+        a = (cols, vals, x, b, om, mode)
+        extra = 2 if mode == "jacobi" else 1
+        # reads cols, vals, x (and b, om_dinv), writes y
+        work = (nbytes(cols, vals, x) + (1 + extra) * 4 * n,
+                2.0 * vals.numel(), torch.float32)
+        compare(f"K11 ell_spmv two-level A {mode} f32 n={n} K={K}",
+                lambda a=a: sparse.ell_spmv(*a),
+                lambda a=a: sparse.ell_spmv_ref(*a), TOL["f32"], 50, 5,
+                rec["ell_spmv_twolevel"], match="ell_spmv_kernel",
+                work=work)
+        if mode == "jacobi":
+            rr = torch.arange(n, device=x.device)[:, None].expand_as(cols)
+            A = csr_of(rr.reshape(-1), cols.reshape(-1), vals.reshape(-1),
+                       (n, n))
+            rec["ell_spmv_twolevel"][-1]["library_ms"] = cuda_ms(
+                lambda A=A, x=x: torch.mv(A, x), 50)
+    r = torch.randn(n, generator=g, dtype=torch.float64).to(vals.device,
+                                                              torch.float32)
+    yk, yp = pre.apply32(r), pre.apply32_ref(r)
+    err = rel_diff(yk, yp)
+    say(f"    two-level cycle through K11 against the plain coo cycle: max "
+        f"|diff| / max |plain| {err:.3e} (tol {TOL['f32']:g})")
+    if not err <= TOL["f32"]:
+        raise SystemExit("two-level SA cycle through K11 FAILED")
+
+
+def generic_path(device, rec):
+    """Phase 11, steps 1-6 (module docstring).  Returns what the profile
+    and the launch table need."""
+    from tigar_tpu_torch.ops import cuda_ext
+    from tigar_tpu_torch.solvers.aggregation import TwoLevelSA
+
+    t0 = time.perf_counter()
+    sp = gp_spline(GP_NEL, device)
+    torch.cuda.synchronize()
+    say(f"generic Poisson setup: {time.perf_counter() - t0:.3f} s; "
+        f"ndof={sp.ndof}, nel={GP_NEL}^2, p={GP_P}, quad_degree "
+        f"{sp.quad_degree}")
+    fastpath_kernel_phases(sp, rec)
+
+    # step 2: the f64 reference solve (default options: cg at this ndof)
+    zero = torch.zeros(sp.ndof, dtype=torch.float64, device=device)
+    b = sp.assemble_vector(gp_L)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U = sp.solve_linear_variational_problem(gp_a, rhs_form=gp_L)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    info = dict(sp.last_linear_solve)
+    true_rel = float(torch.linalg.norm(b - sp.tangent_action(gp_a, zero, U))
+                     / torch.linalg.norm(b))
+    say(f"generic f64 solve ({info['method']}, Jacobi, AD tangent action): "
+        f"{t_cg:.3f} s, {info['iters']} iterations, recurrence rel "
+        f"{info['rel']:.3e}, true rel {true_rel:.3e}")
+    if not (bool(torch.isfinite(U).all()) and true_rel < 1e-11):
+        raise SystemExit("generic f64 solve FAILED")
+
+    # step 3: mixed-precision refinement, K12 inside
+    torch.cuda.synchronize()
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    x, sweeps, rel = gp_refine(sp, b)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    l_ref = cuda_ext.counts()
+    d_ref = rel_diff(x, U)
+    say(f"generic refine_solve (f32 K12 + Jacobi inside, {GP_REFINE_ITERS} "
+        f"inner iterations): {t_ref:.3f} s, {sweeps} sweeps, rel "
+        f"{rel:.3e}; max |x - U_cg| / max |U_cg| {d_ref:.3e} (bound "
+        f"{GP_TOL['solution']:g}); K12 launches {l_ref['laplace_apply']}")
+    if not (rel < 1e-12 and d_ref <= GP_TOL["solution"]
+            and l_ref["laplace_apply"] > 0):
+        raise SystemExit("generic refine_solve FAILED")
+
+    # step 4: L2 errors and the rate
+    sp2 = gp_spline(GP_NEL2, device)
+    U2 = sp2.solve_linear_variational_problem(gp_a, rhs_form=gp_L)
+    e2 = float(sp2.errornorm(U2, lambda ctx: gp_soln(ctx.x)))
+    e1 = float(sp.errornorm(U, lambda ctx: gp_soln(ctx.x)))
+    rate = float(np.log2(e2 / e1))
+    say(f"generic L2 errors {GP_NEL2}^2 / {GP_NEL}^2: {e2:.4e} / {e1:.4e}, "
+        f"rate {rate:.4f} (> 2.7)")
+    if not rate > 2.7:
+        raise SystemExit("generic L2 rate FAILED")
+
+    # step 5: two-level sa_cg at 128^2 (B9b through K11)
+    sp2.set_solver_options(linear_solver="sa_cg", sa_levels=2)
+    zero2 = torch.zeros(sp2.ndof, dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    pre, _ = sp2._sa_preconditioner(gp_a, zero2, None, True)
+    torch.cuda.synchronize()
+    setup2 = time.perf_counter() - t0
+    if not isinstance(pre, TwoLevelSA):
+        raise SystemExit("sa_levels=2 did not build a TwoLevelSA")
+    say(f"two-level SA ({GP_NEL2}^2, {sp2.ndof} DoFs): m = {pre.n_coarse} "
+        f"aggregates, omega {pre._omega:.6f}; host setup {setup2:.3f} s "
+        f"(sparse assembly on the card, scipy/numpy on the host)")
+    twolevel_kernel_phases(pre, rec)
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usa2 = sp2.solve_linear_variational_problem(gp_a, rhs_form=gp_L)
+    torch.cuda.synchronize()
+    t_sa2 = time.perf_counter() - t0
+    l_sa2 = cuda_ext.counts()
+    it2 = sp2.last_linear_solve["iters"]
+    d_sa2 = rel_diff(Usa2, U2)
+    say(f"two-level sa_cg solve: {t_sa2:.3f} s, {it2} iterations, rel "
+        f"{sp2.last_linear_solve['rel']:.3e}; max |U - U_cg| / max |U_cg| "
+        f"{d_sa2:.3e} (bound {GP_TOL['solution']:g}); K11 launches "
+        f"{l_sa2['ell_spmv']}")
+    if not (d_sa2 <= GP_TOL["solution"] and l_sa2["ell_spmv"] > 0):
+        raise SystemExit("two-level sa_cg FAILED")
+
+    # step 6: multilevel sa_cg (sa_levels=4) at 256^2
+    sp.set_solver_options(linear_solver="sa_cg", sa_levels=4)
+    t0 = time.perf_counter()
+    pre4, _ = sp._sa_preconditioner(gp_a, zero, None, True)
+    torch.cuda.synchronize()
+    setup4 = time.perf_counter() - t0
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usa4 = sp.solve_linear_variational_problem(gp_a, rhs_form=gp_L)
+    torch.cuda.synchronize()
+    t_sa4 = time.perf_counter() - t0
+    l_sa4 = cuda_ext.counts()
+    d_sa4 = rel_diff(Usa4, U)
+    say(f"multilevel sa_cg ({GP_NEL}^2): levels {pre4.level_sizes}, host "
+        f"setup {setup4:.3f} s; solve {t_sa4:.3f} s, "
+        f"{sp.last_linear_solve['iters']} iterations, rel "
+        f"{sp.last_linear_solve['rel']:.3e}; max |U - U_cg| / max |U_cg| "
+        f"{d_sa4:.3e} (bound {GP_TOL['solution']:g}); K11 launches "
+        f"{l_sa4['ell_spmv']}")
+    if not (d_sa4 <= GP_TOL["solution"] and l_sa4["ell_spmv"] > 0):
+        raise SystemExit("multilevel sa_cg FAILED")
+    sp.set_solver_options(linear_solver="cg")
+    return dict(sp=sp, b=b, x=x, launches={
+        "refine": {"laplace_apply": l_ref["laplace_apply"]},
+        "sa_two_level": {"ell_spmv": l_sa2["ell_spmv"]},
+        "sa_multilevel": {"ell_spmv": l_sa4["ell_spmv"]}})
+
+
+def generic_reference(device):
+    """Phase 11, step 7: nel=8, the card against the CPU plain versions
+    for direct, cg, refine_solve and two-level sa_cg (U within 1e-10)."""
+    out = {}
+    for key, dev in (("card", device), ("cpu", "cpu")):
+        s = gp_spline(8, dev)
+        res = {}
+        for method in ("direct", "cg", "sa_cg"):
+            s.set_solver_options(linear_solver=method)
+            res[method] = s.solve_linear_variational_problem(
+                gp_a, rhs_form=gp_L).cpu()
+        x, sweeps, _ = gp_refine(s, s.assemble_vector(gp_L))
+        res["refine_solve"] = x.cpu()
+        out[key] = (res, sweeps)
+    diffs = {k: rel_diff(out["card"][0][k], v)
+             for k, v in out["cpu"][0].items()}
+    say(f"generic small-input reference (nel=8): card against CPU plain "
+        f"versions, max rel diff of U {diffs}; refine sweeps card "
+        f"{out['card'][1]}, CPU {out['cpu'][1]}")
+    if not all(v <= GP_TOL["ref"] for v in diffs.values()):
+        raise SystemExit("generic small-input reference FAILED")
+
+
+def profile_refine_sweep(gp):
+    """Phase 11, step 8: torch.profiler over one refinement sweep at the
+    solution's neighbourhood (the f64 AD residual, 120 f32 CG iterations
+    with K12, the update): device busy time and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    from tigar_tpu_torch.ops.fastpath import make_laplace_operator
+    from tigar_tpu_torch.solvers.linear import (cg_fixed_iters,
+                                                jacobi_preconditioner)
+    sp, b = gp["sp"], gp["b"]
+    x0 = torch.zeros_like(b)
+    op64 = sp.matrix_operator(gp_a)
+    op32 = make_laplace_operator(sp._assembler("dx"), sp.mask)
+    M32 = jacobi_preconditioner(sp.assemble_diagonal(gp_a).float())
+
+    def sweep():
+        r = b - op64(x0)
+        d, _ = cg_fixed_iters(op32, r.float(), GP_REFINE_ITERS, M=M32)
+        return x0 + d.double()
+
+    wall = best_of_3(sweep)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sweep()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+    if not rows:
+        say("profile refinement sweep: no device time recorded (not "
+            "measured)")
+        return
+    dev_ms = sum(r[2] for r in rows) / 1e3
+    say(f"profile refinement sweep ({GP_NEL}^2): device busy {dev_ms:.3f} ms "
+        f"of {wall * 1e3:.3f} ms un-profiled wall (busy share "
+        f"{dev_ms / wall / 1e3:.3f}); {sum(r[1] for r in rows)} device ops")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
+        say(f"    {us / 1e3:9.3f} ms  {us / 1e3 / dev_ms:6.3f} of busy  "
+            f"{count:6d} x  {key[:90]}")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -1507,6 +1851,16 @@ def main():
     for k in sa_kernels:
         launches[k] = l_sa[k]
 
+    # -- phase 11: the generic form path (FEniCS-like forms, 256^2 Poisson):
+    # K12 under mixed-precision refinement, B9b through K11 --------------
+    t0 = time.time()
+    gp = generic_path(device, rec)
+    say(f"phase 11 (generic form path) took {time.time() - t0:.1f} s")
+    by_path.update({f"generic_{k}": v for k, v in gp["launches"].items()})
+    launches["laplace_apply"] = gp["launches"]["refine"]["laplace_apply"]
+    launches["ell_spmv_twolevel"] = by_path["generic_sa_two_level"][
+        "ell_spmv_twolevel"] = gp["launches"]["sa_two_level"]["ell_spmv"]
+
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
     best_polish = best_of_3(lambda: ns.polish_step(U1))
@@ -1543,6 +1897,7 @@ def main():
     say("SANewton profile:")
     profile_steps(ns_sa, Usa, {"production step": sa_step,
                                "polish step": sa_polish})
+    profile_refine_sweep(gp)
 
     # -- small-input reference: card against the CPU twins ----------------
     ns_g, _ = build_solver(8, device, cg_iters=40)
@@ -1558,6 +1913,7 @@ def main():
     two_patch_reference(device)
     two_patch_reference(device, "nitsche")
     sa_reference(device)
+    generic_reference(device)
 
     poisson_checks(device, pb, err96)
 
@@ -1585,7 +1941,11 @@ def main():
            "elem_tangent_apply": ("tigar_tpu_torch/csrc/elem_tangent.cu",
                                   "tigar_tpu/solvers/newton_sa.py:132"),
            "ell_spmv": ("tigar_tpu_torch/csrc/ell_spmv.cu",
-                        "tigar_tpu/solvers/aggregation.py:356")}
+                        "tigar_tpu/solvers/aggregation.py:356"),
+           "laplace_apply": ("tigar_tpu_torch/csrc/laplace_apply.cu",
+                             "tigar_tpu/ops/fastpath.py:57"),
+           "ell_spmv_twolevel": ("tigar_tpu_torch/csrc/ell_spmv.cu",
+                                 "tigar_tpu/solvers/aggregation.py:113")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
@@ -1597,7 +1957,9 @@ def main():
             "nitsche_iface_tangent": f"f32 nq={cpl_nit.wq.numel()}",
             "tangent_elements": f"f32 nq={ns_sa.asm_b32.nq}",
             "elem_tangent_apply": "masked f32",
-            "ell_spmv": "P apply f32 level 0"}
+            "ell_spmv": "P apply f32 level 0",
+            "laplace_apply": f"2D p=2 nel={GP_NEL}",
+            "ell_spmv_twolevel": "two-level A jacobi"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]

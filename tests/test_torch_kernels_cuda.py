@@ -3,7 +3,9 @@ twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
 small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
 element range and K5-K9 on the small two-patch plate and the three-patch
 L of the CPU tests; K2's element mode, K10 and K11, and the SANewton path
-through them, on the nel=8 plate).  Every test skips without a CUDA
+through them, on the nel=8 plate; K12 on small 2D/3D Poisson splines and
+the two-level SA cycle through K11, with the generic form path's
+refinement and sa_cg solves through them).  Every test skips without a CUDA
 device; run them on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -12,7 +14,8 @@ Tolerances (relative to the largest entry of the twin's result): f64
 1e-12; f32 1e-5, and 1e-4 on tangent stencils (f32 atomics add in a
 nondeterministic order, and the stencil entries sum 4-36 element
 contributions of mixed sign); 1e-6 on the f32 interface block apply (no
-atomics, one dot product of m terms per row).
+atomics, one dot product of m terms per row); K12 (f32 only) 1e-5, and
+2e-6 against the f64 AD tangent action (tests/test_fastpath.py).
 """
 
 import numpy as np
@@ -622,3 +625,110 @@ def test_sa_kernels_refuse_what_they_cannot_take(cuda):
         asm.element_matrices_adjoint(DENSITY, _state(spline),
                                      me=torch.ones((2, 27), device=cuda,
                                                    dtype=torch.float64))
+
+
+# -- K12 and the generic form path --------------------------------------------
+
+
+def _poisson(nel, device, p=2, dim=2):
+    cm = ExplicitBSplineControlMesh([p] * dim,
+                                    [uniform_knots(p, 0.0, 1.0, nel)] * dim)
+    sp = EqualOrderSpline(1, cm)
+    basis = sp.get_scalar_spline()
+    for d in range(dim):
+        for side in (0, 1):
+            sp.add_zero_dofs(0, basis.side_dofs(d, side))
+    return ExtractedSpline(sp, quad_degree=2 * p, device=device)
+
+
+def _poisson_a(ctx, u, v):
+    return torch.sum(ctx.grad(u) * ctx.grad(v))
+
+
+def _poisson_L(ctx, v):
+    return (2.0 * torch.pi ** 2 * torch.sin(torch.pi * ctx.x[0])
+            * torch.sin(torch.pi * ctx.x[1]) * v.val)
+
+
+@pytest.mark.parametrize("p,dim,nel", [(2, 2, 12), (3, 2, 8), (2, 3, 5)],
+                         ids=["2d-p2", "2d-p3", "3d-p2"])
+def test_laplace_apply_kernel(cuda, p, dim, nel):
+    from tigar_tpu_torch.ops import fastpath
+    sp = _poisson(nel, cuda, p=p, dim=dim)
+    asm = sp._assembler("dx")
+    A1, A2 = fastpath.laplace_layouts(asm)
+    connT = asm.conns[0].t().contiguous()
+    W = torch.as_tensor(np.random.default_rng(0).normal(size=sp.ndof),
+                        device=cuda)
+    m32 = sp.mask.float()
+    before = cuda_ext.counts()["laplace_apply"]
+    yk = fastpath.laplace_apply(A1, A2, connT, m32, W.float())
+    assert cuda_ext.counts()["laplace_apply"] == before + 1
+    yt = fastpath.laplace_apply_ref(A1, A2, connT, m32, W.float())
+    scale = float(yt.abs().max())
+    assert float((yk - yt).abs().max()) <= 1e-5 * scale
+    ref = sp.tangent_action(_poisson_a, torch.zeros_like(W), W)
+    out = fastpath.make_laplace_operator(asm, sp.mask)(W)
+    assert out.dtype == torch.float64
+    assert float((out - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+def test_laplace_apply_refuses_what_it_cannot_take(cuda):
+    from tigar_tpu_torch.ops import fastpath
+    sp = _poisson(4, cuda)
+    asm = sp._assembler("dx")
+    A1, A2 = fastpath.laplace_layouts(asm)
+    connT = asm.conns[0].t().contiguous()
+    W = torch.zeros(sp.ndof, device=cuda)
+    with pytest.raises(TypeError):
+        fastpath.laplace_apply(A1.double(), A2.double(), connT, sp.mask, W)
+    with pytest.raises(ValueError):
+        fastpath.laplace_apply(A1[:-1], A2[:-1], connT, sp.mask.float(), W)
+
+
+def test_twolevel_cycle_runs_through_kernels(cuda):
+    """The two-level SA cycle on the card runs K11 (sweeps and residual,
+    no fallback) and agrees with the plain coo cycle to f32 1e-5."""
+    from tigar_tpu_torch.solvers.aggregation import TwoLevelSA
+    sp = _poisson(12, cuda)
+    pre, _ = TwoLevelSA.from_spline(sp, _poisson_a)
+    r = torch.as_tensor(np.random.default_rng(1).normal(size=sp.ndof),
+                        dtype=torch.float32, device=cuda)
+    cuda_ext.reset_counts()
+    yk = pre.apply32(r)
+    assert cuda_ext.counts()["ell_spmv"] == 2 * pre._n_smooth
+    yp = pre.apply32_ref(r)
+    assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+
+
+@pytest.mark.parametrize("method", ["refine", "sa_cg"])
+def test_generic_path_runs_through_kernels(cuda, method):
+    """refine_solve with K12 inside and two-level sa_cg (K11) on the card
+    agree with the CPU plain versions (U within 1e-10)."""
+    from tigar_tpu_torch.ops.fastpath import make_laplace_operator
+    from tigar_tpu_torch.solvers.linear import jacobi_preconditioner
+    from tigar_tpu_torch.solvers.refinement import refine_solve
+    out = {}
+    for dev in (cuda, "cpu"):
+        sp = _poisson(10, dev)
+        cuda_ext.reset_counts()
+        if method == "refine":
+            b = sp.assemble_vector(_poisson_L)
+            M32 = jacobi_preconditioner(
+                sp.assemble_diagonal(_poisson_a).float())
+            x, _, rel = refine_solve(
+                sp.matrix_operator(_poisson_a),
+                make_laplace_operator(sp._assembler("dx"), sp.mask), b,
+                tol=1e-12, inner_iters=60, M_f32=M32)
+            assert rel < 1e-12
+            kern = "laplace_apply"
+        else:
+            sp.set_solver_options(linear_solver="sa_cg")
+            x = sp.solve_linear_variational_problem(_poisson_a,
+                                                    rhs_form=_poisson_L)
+            kern = "ell_spmv"
+        n = cuda_ext.counts()[kern]
+        assert (n > 0) if dev is cuda else (n == 0)
+        out[str(dev)] = x.cpu()
+    assert float((out[str(cuda)] - out["cpu"]).abs().max()) <= \
+        1e-10 * float(out["cpu"].abs().max())

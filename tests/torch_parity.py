@@ -212,3 +212,61 @@ def mp_smooth_state(ns):
     for P in reversed(ns._Ps):
         U = P.up(U)
     return (ns.mask64 * U).numpy()
+
+
+# -- the scalar generic form path (tests/test_poisson.py, test_refinement.py) -
+
+
+def scalar_spline(pkg, p, nel, lo=0.0, layers=1, nders=1, quad_degree=None):
+    """Unit-square (or [lo, 1]^2) scalar spline, homogeneous Dirichlet on
+    ``layers`` control-point layers of every side."""
+    if pkg == "jax":
+        import jax.numpy as xp  # noqa: F401
+        from tigar_tpu.ops.knots import uniform_knots as knots
+        from tigar_tpu.models.bspline import ExplicitBSplineControlMesh as Mesh
+        from tigar_tpu.models.space import EqualOrderSpline as Space
+        from tigar_tpu.models.extracted import ExtractedSpline as Spline
+    else:
+        from tigar_tpu_torch.ops.knots import uniform_knots as knots
+        from tigar_tpu_torch.models.bspline import (
+            ExplicitBSplineControlMesh as Mesh)
+        from tigar_tpu_torch.models.space import EqualOrderSpline as Space
+        from tigar_tpu_torch.models.extracted import ExtractedSpline as Spline
+    cm = Mesh([p, p], [knots(p, lo, 1.0, nel)] * 2)
+    sp = Space(1, cm)
+    basis = sp.get_scalar_spline()
+    for d in (0, 1):
+        for s in (0, 1):
+            sp.add_zero_dofs(0, basis.side_dofs(d, s, n_layers=layers))
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    qd = 2 * p if quad_degree is None else quad_degree
+    return Spline(sp, quad_degree=qd, nders=nders, **kw)
+
+
+def scalar_forms(pkg):
+    """Poisson (a, L), a nonlinear residual with params, a functional and
+    the exact solution, as per-point densities of package ``pkg``."""
+    if pkg == "jax":
+        import jax.numpy as xp
+    else:
+        xp = torch
+
+    def soln(x):
+        return xp.sin(xp.pi * x[0]) * xp.sin(xp.pi * x[1])
+
+    def a(ctx, u, v):
+        return xp.sum(ctx.grad(u) * ctx.grad(v))
+
+    def L(ctx, v):
+        return 2.0 * xp.pi ** 2 * soln(ctx.x) * v.val
+
+    def res(ctx, u, v, params):
+        k = 1.0 + params["c"] * u.val ** 2
+        return (k * xp.sum(ctx.grad(u) * ctx.grad(v))
+                + params["s"] * u.val ** 3 * v.val
+                - (1.0 + ctx.x[0]) * v.val)
+
+    def energy(ctx, u):
+        return 0.5 * xp.sum(ctx.grad(u) ** 2) + xp.cos(u.val) * ctx.x[1]
+
+    return dict(soln=soln, a=a, L=L, res=res, energy=energy)

@@ -1,22 +1,21 @@
 """tigar_tpu_torch: the PyTorch/CUDA port of tigar_tpu.
 
-Three production paths are ported.  The Kirchhoff-Love shell: the numpy
-spline core, the extracted spline's volume assembler, the SVK shell
-adjoint density, sliding-window stencil tangents and the mixed-precision
-stencil-multigrid Newton solver.  The multi-patch shell: multi-patch
-bases, interface forms on non-matching interfaces, the shell penalty
-coupling, the consistent (Nitsche) coupling derived from the SVK energy
-and the multi-patch stencil Newton solver.  The matrix-free 3D
-Poisson solve: sum-factorized operators, fixed-iteration CG, a geometric
-V-cycle over knot-insertion transfers and mixed-precision refinement.
-Nine hand-written CUDA kernels (``csrc/``) carry the device work: the
-shell residual, the tangent stencil build, the stencil apply, the
-sum-factorized apply, the dense interface block apply, and the interface
-residual and tangent block of the shell penalty and of the Nitsche
-coupling.  Each has a plain PyTorch twin in
-the same module;
-tensors on the CPU go to the twin, CUDA tensors to the kernel.  Entry
-points put their tensors on the card unless the caller asks for the CPU.
+Ported paths: the Kirchhoff-Love shell (the numpy spline core, the
+extracted spline's volume assembler, the SVK shell adjoint density,
+sliding-window stencil tangents and the mixed-precision stencil-multigrid
+Newton solver; the space-agnostic SANewton with element tangents and
+smoothed aggregation); the multi-patch shell (multi-patch bases,
+interface forms on non-matching interfaces, the penalty and the
+consistent Nitsche couplings, the multi-patch stencil Newton solver); the
+matrix-free 3D Poisson solve (sum-factorized operators, fixed-iteration
+CG, a geometric V-cycle, mixed-precision refinement); and the generic
+linear form path (per-point densities assembled with torch.func,
+ExtractedSpline's linear solvers, the f32 fast-path apply, two-level and
+multilevel smoothed-aggregation CG).  Twelve hand-written CUDA kernels
+(``csrc/``, K1-K12) carry the device work.  Each has a plain PyTorch
+twin in the same module; tensors on the CPU go to the twin, CUDA tensors
+to the kernel.  Entry points put their tensors on the card unless the
+caller asks for the CPU.
 
 The package imports torch and numpy only, never jax or tigar_tpu.
 """

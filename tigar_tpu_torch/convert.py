@@ -16,8 +16,11 @@ same for stencils.  ``mp_operator_arrays``/``mp_operator_from_numpy`` carry
 a multi-patch operator (per-patch stencils, interface blocks idx, K, Sinv)
 and ``interface_arrays``/``interface_from_numpy`` an interface form (both
 sides' SideData, wq, nu, w_param, surfJ, params), ``mlsa_arrays``/
-``mlsa_from_numpy`` a smoothed-aggregation hierarchy and
-``elem_tangent_from_numpy`` an element-batch tangent.  Tests use them to feed
+``mlsa_from_numpy`` a smoothed-aggregation hierarchy,
+``twolevel_sa_arrays``/``twolevel_sa_from_numpy`` a two-level one,
+``elem_tangent_from_numpy`` an element-batch tangent and
+``laplace_layouts_from_numpy`` the layouts of the f32 fast-path apply.
+Tests use them to feed
 identical inputs to the JAX functions and to this package's kernels and
 twins, independent of either package's own preprocessing.
 """
@@ -245,3 +248,45 @@ def elem_tangent_from_numpy(conn, E, ndof, device="cuda",
     return ElemTangent(
         torch.as_tensor(np.array(conn, dtype=INDEX_TYPE), device=device),
         torch.as_tensor(np.array(E), dtype=dtype, device=device), ndof)
+
+
+def laplace_layouts_from_numpy(A1, A2, connT, device="cuda"):
+    """(A1, A2, connT) of the fast-path stiffness apply (ops/fastpath.py)
+    from numpy: layouts float32 [nen * nq * d, nel], connT int32 [nen,
+    nel]."""
+    device = resolve_device(device)
+
+    def t(a, dt):
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    return (t(A1, torch.float32), t(A2, torch.float32),
+            t(connT, torch.int32))
+
+
+_TWOLEVEL = ("_rows", "_cols", "_vals", "_dinv", "_P", "_Ac_inv")
+
+
+def twolevel_sa_arrays(pre):
+    """numpy arrays of a two-level SA preconditioner (this package's or
+    tigar_tpu's ``TwoLevelSA``): the coo operator, dinv, P, Ac_inv (as
+    stored, float32), omega, n_smooth and ndof."""
+    out = {k[1:]: _np(getattr(pre, k)) for k in _TWOLEVEL}
+    out.update(omega=float(pre._omega), n_smooth=int(pre._n_smooth),
+               ndof=int(pre._ndof))
+    return out
+
+
+def twolevel_sa_from_numpy(arrays, device="cuda"):
+    """This package's TwoLevelSA from ``twolevel_sa_arrays`` output (rows
+    and cols int64, values float32; the ELL copy built from the coo)."""
+    from .solvers.aggregation import TwoLevelSA
+    device = resolve_device(device)
+
+    def t(k, dt):
+        return torch.as_tensor(np.array(arrays[k]), dtype=dt, device=device)
+
+    return TwoLevelSA(t("rows", torch.int64), t("cols", torch.int64),
+                      t("vals", torch.float32), t("dinv", torch.float32),
+                      t("P", torch.float32), t("Ac_inv", torch.float32),
+                      omega=arrays["omega"], n_smooth=arrays["n_smooth"],
+                      ndof=arrays["ndof"])

@@ -283,6 +283,36 @@ torch::Tensor ell_spmv(torch::Tensor cols, torch::Tensor vals,
   return y;
 }
 
+torch::Tensor laplace_apply(torch::Tensor A1, torch::Tensor A2,
+                            torch::Tensor connT, torch::Tensor mask,
+                            torch::Tensor W) {
+  TORCH_CHECK(connT.dim() == 2 && A1.dim() == 2 && W.dim() == 1,
+              "connT [nen, nel], A1 [nen * M, nel], W a vector");
+  const int64_t nen = connT.size(0), nel = connT.size(1), ndof = W.size(0);
+  TORCH_CHECK(nen >= 1 && A1.size(0) % nen == 0, "A1 rows ", A1.size(0),
+              " are not a multiple of nen ", nen);
+  TORCH_CHECK(nen == 4 || nen == 8 || nen == 9 || nen == 16 || nen == 27 ||
+                  nen == 64,
+              "K12 takes nen in {4, 8, 9, 16, 27, 64}, got ", nen);
+  const int64_t M = A1.size(0) / nen;
+  TORCH_CHECK(nen * M * nel < (int64_t(1) << 40) && nel < (int64_t(1) << 31)
+                  && ndof < (int64_t(1) << 31), "K12 shape too large");
+  check(A1, "A1", torch::kFloat, {nen * M, nel});
+  check(A2, "A2", torch::kFloat, {nen * M, nel});
+  check(connT, "connT", torch::kInt, {nen, nel});
+  check(mask, "mask", torch::kFloat, {ndof});
+  check(W, "W", torch::kFloat, {ndof});
+  const c10::cuda::CUDAGuard guard(W.device());
+  auto r = torch::empty_like(W);
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  const cudaError_t err = tigar::laplace_apply_launch(
+      (int)nel, (int)nen, (int)M, (int)ndof, A1.data_ptr<float>(),
+      A2.data_ptr<float>(), connT.data_ptr<int>(), mask.data_ptr<float>(),
+      W.data_ptr<float>(), r.data_ptr<float>(), stream);
+  check_launch(err, "laplace_apply");
+  return r;
+}
+
 torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
                             std::optional<torch::Tensor> mask,
                             std::optional<torch::Tensor> b,
@@ -687,6 +717,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("elem_tangent_diagonal", &elem_tangent_diagonal,
         "K10: element-batch tangent diagonal");
   m.def("ell_spmv", &ell_spmv, "K11: ELL product / residual / Jacobi");
+  m.def("laplace_apply", &laplace_apply,
+        "K12: f32 scalar stiffness apply over explicit connectivity");
   m.def("stencil_apply", &stencil_apply,
         "K3: stencil apply / residual / Jacobi sweep");
 }

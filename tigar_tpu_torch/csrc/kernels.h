@@ -171,4 +171,13 @@ cudaError_t ell_spmv_launch(int n, int K, const int* cols, const T* vals,
                             const T* x, const T* b, const T* om_dinv,
                             int mode, T* y, cudaStream_t stream);
 
+// K12: f32 scalar stiffness apply r = mask A (mask W) + (1 - mask) W over
+// connT [nen][nel] (nen in {4, 8, 9, 16, 27, 64}) with the layouts A1, A2
+// [nen][M][nel] (M = nq * d); r of ndof entries, every entry written.
+cudaError_t laplace_apply_launch(int nel, int nen, int M, int ndof,
+                                 const float* A1, const float* A2,
+                                 const int* connT, const float* mask,
+                                 const float* W, float* r,
+                                 cudaStream_t stream);
+
 }  // namespace tigar

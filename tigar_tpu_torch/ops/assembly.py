@@ -1,6 +1,6 @@
-"""Batched assembly over Bezier elements: adjoint-form residuals and
-element tangents (port of the ``DomainAssembler`` parts of
-tigar_tpu/ops/assembly.py that the production shell path runs).
+"""Batched assembly over Bezier elements (port of ``DomainAssembler`` and
+the BC helpers of tigar_tpu/ops/assembly.py): adjoint-form residuals and
+element tangents of the shell path, and the generic form path.
 
 Layout: per-field tabulations N [nel, nq, nen], dN [.., d], d2N [.., d, d],
 concatenated global connectivity ``cat_conn`` [nel, nloc] (field-major
@@ -10,6 +10,16 @@ and ``scale`` [nel, nq] = quadrature weight x Jacobian.
 Kernel K1 (csrc/shell_residual.cu) replaces ``residual_vector_adjoint``
 on CUDA tensors; ``residual_vector_adjoint_ref`` is its plain twin and
 runs for CPU tensors.
+
+The generic path (``functional``, ``element_residuals``,
+``element_matrices`` and the vectors and scatters built on them) maps a
+per-element function over the element batch with ``torch.func.vmap``, in
+chunks of 8,192 elements when the batch is larger (the JAX package's
+``lax.map`` chunks, tigar_tpu/config.py DEFAULT_ASSEMBLY_CHUNK), and the
+per-point density over the element's quadrature points: densities are
+written for one point, as in the JAX package.  Residuals are gradients
+of the element form with respect to the local test coefficients
+(``torch.func.grad``), element matrices their forward Jacobians.
 """
 
 from __future__ import annotations
@@ -18,8 +28,20 @@ import numpy as np
 import torch
 
 from ..config import TORCH_INDEX_TYPE
-from ..forms import Jet, QP
+from ..forms import Jet, QP, tree_vmap
 from . import cuda_ext
+
+# elements per vmap batch of the generic path (tigar_tpu/config.py:48)
+DEFAULT_ASSEMBLY_CHUNK = 8192
+
+
+def _vmap_density(density, params):
+    """Map a pointwise density over the quadrature axis of its jet/ctx
+    arguments; ``params`` (if given) is passed unbatched as the last
+    argument."""
+    if params is None:
+        return tree_vmap(density)
+    return tree_vmap(lambda *args: density(*args, params))
 
 
 class DomainAssembler:
@@ -134,7 +156,10 @@ class DomainAssembler:
     # -- field evaluation -------------------------------------------------------
 
     def _gather_local(self, U):
-        """Global DoF vector -> [nel, nloc] element coefficients."""
+        """Global DoF vector (or dict of vectors) -> [nel, nloc] element
+        coefficients (or a dict of them)."""
+        if isinstance(U, dict):
+            return {k: self._gather_local(v) for k, v in U.items()}
         return U[self._cat_conn_long]
 
     def _split_local(self, uloc):
@@ -199,6 +224,137 @@ class DomainAssembler:
             parts.append(r)
         return torch.cat(parts, dim=-1)
 
+    # -- the generic form path (per-element maps) -----------------------------
+
+    def _tree_local_jets(self, Ue, Ns, dNs, d2Ns, masks):
+        """Local jets of a tensor or dict of tensors of local
+        coefficients."""
+        if isinstance(Ue, dict):
+            return {k: self._local_jets(v, Ns, dNs, d2Ns, masks)
+                    for k, v in Ue.items()}
+        return self._local_jets(Ue, Ns, dNs, d2Ns, masks)
+
+    def _elem_xs(self, Ue=None):
+        base = (self.ctx, self.scale, tuple(self.Ns), tuple(self.dNs),
+                tuple(self.d2Ns), tuple(self.masks))
+        return base if Ue is None else (Ue,) + base
+
+    def _map_elements(self, fn, xs):
+        """``fn`` mapped over the element axis of every tensor leaf of
+        ``xs``: one vmap, or vmaps over chunks of DEFAULT_ASSEMBLY_CHUNK
+        elements concatenated (bounds the per-point intermediates of one
+        batch)."""
+        mapped = tree_vmap(fn)
+        nel, chunk = self.nel, DEFAULT_ASSEMBLY_CHUNK
+        if nel <= chunk:
+            return mapped(*xs)
+        parts = []
+        for s in range(0, nel, chunk):
+            sl = slice(s, min(s + chunk, nel))
+            parts.append(mapped(*torch.utils._pytree.tree_map(
+                lambda x, sl=sl: x[sl] if isinstance(x, torch.Tensor)
+                else x, xs)))
+        return torch.cat(parts, dim=0)
+
+    def functional(self, density, u_jets=None, params=None):
+        """Integral of density(ctx[, u][, params]) over the batch.
+        ``u_jets``: global DoF vector or dict of vectors."""
+        dens = _vmap_density(density, params)
+
+        def elem(*args):
+            if u_jets is None:
+                ctx_e, scale_e = args[:2]
+                d = dens(ctx_e)
+            else:
+                Ue_e, ctx_e, scale_e, Ns_e, dNs_e, d2Ns_e, masks_e = args
+                uj = self._tree_local_jets(Ue_e, Ns_e, dNs_e, d2Ns_e,
+                                           masks_e)
+                d = dens(ctx_e, uj)
+            return torch.sum(d * scale_e)
+
+        if u_jets is None:
+            xs = self._elem_xs()
+        else:
+            xs = self._elem_xs(self._gather_local(u_jets))
+        return torch.sum(self._map_elements(elem, xs)).to(self.dtype)
+
+    def element_residuals(self, density, U=None, params=None):
+        """[nel, nloc] element residuals: the gradient of the element form
+        with respect to the local test coefficients.  ``U``: global DoF
+        vector or dict of vectors (None for a linear form)."""
+        dens = _vmap_density(density, params)
+        dtype, device, nloc = self.dtype, self.device, self.nloc
+
+        def elem(*args):
+            if U is None:
+                ctx_e, scale_e, Ns_e, dNs_e, d2Ns_e, masks_e = args
+                uj = None
+            else:
+                Ue_e, ctx_e, scale_e, Ns_e, dNs_e, d2Ns_e, masks_e = args
+                uj = self._tree_local_jets(Ue_e, Ns_e, dNs_e, d2Ns_e,
+                                           masks_e)
+
+            def R(vloc):
+                v = self._local_jets(vloc, Ns_e, dNs_e, d2Ns_e, masks_e)
+                d = dens(ctx_e, v) if uj is None else dens(ctx_e, uj, v)
+                return torch.sum(d * scale_e)
+
+            return torch.func.grad(R)(torch.zeros(nloc, dtype=dtype,
+                                                  device=device))
+
+        xs = self._elem_xs(None if U is None else self._gather_local(U))
+        return self._map_elements(elem, xs)
+
+    def linear_vector(self, density, params=None):
+        """b_i = L(N_i) for density(ctx, v[, params]) linear in v."""
+        return self.scatter_vector(self.element_residuals(density, None, params))
+
+    def residual_vector(self, density, U, params=None):
+        """r_i = res(u; N_i) for density(ctx, u, v[, params]) linear in
+        v."""
+        return self.scatter_vector(self.element_residuals(density, U, params))
+
+    def element_matrices(self, density, U, params=None):
+        """[nel, nloc, nloc] element tangent matrices of density(ctx, u, v)
+        linearized about U (forward Jacobian of the local residual).  ``U``:
+        global vector, or a dict with the unknown under "u" (the other
+        entries are held fixed)."""
+        dens = _vmap_density(density, params)
+        dtype, device, nloc = self.dtype, self.device, self.nloc
+        is_dict = isinstance(U, dict)
+
+        def elem(Ue_e, ctx_e, scale_e, Ns_e, dNs_e, d2Ns_e, masks_e):
+            aux = ({k: self._local_jets(v, Ns_e, dNs_e, d2Ns_e, masks_e)
+                    for k, v in Ue_e.items() if k != "u"} if is_dict else {})
+
+            def local_residual(ul):
+                def R(vloc):
+                    uj = self._local_jets(ul, Ns_e, dNs_e, d2Ns_e, masks_e)
+                    u = {"u": uj, **aux} if is_dict else uj
+                    v = self._local_jets(vloc, Ns_e, dNs_e, d2Ns_e, masks_e)
+                    return torch.sum(dens(ctx_e, u, v) * scale_e)
+                return torch.func.grad(R)(torch.zeros(nloc, dtype=dtype,
+                                                      device=device))
+
+            uloc = Ue_e["u"] if is_dict else Ue_e
+            return torch.func.jacfwd(local_residual)(uloc)
+
+        return self._map_elements(elem, self._elem_xs(self._gather_local(U)))
+
+    def scatter_dense(self, A_e):
+        """Scatter element matrices into a dense [ndof, ndof] matrix."""
+        nel, nloc = self.cat_conn.shape
+        c = self._cat_conn_long
+        rows = c[:, :, None].expand(nel, nloc, nloc).reshape(-1)
+        cols = c[:, None, :].expand(nel, nloc, nloc).reshape(-1)
+        A = torch.zeros((self.ndof, self.ndof), dtype=A_e.dtype,
+                        device=A_e.device)
+        return A.index_put((rows, cols), A_e.reshape(-1), accumulate=True)
+
+    def scatter_diag(self, A_e):
+        """Scatter only the element-matrix diagonals (Jacobi)."""
+        return self.scatter_vector(torch.diagonal(A_e, dim1=1, dim2=2))
+
     # -- adjoint-form assembly --------------------------------------------------
 
     def element_residuals_adjoint(self, adjoint_density, U):
@@ -211,10 +367,11 @@ class DomainAssembler:
                                       self.d2Ns, self.masks)
 
     def scatter_vector(self, r_e):
-        """Scatter-add [nel, nloc] element vectors into a global vector."""
-        out = torch.zeros(self.ndof, dtype=r_e.dtype, device=r_e.device)
-        return out.index_add_(0, self._cat_conn_long.reshape(-1),
-                              r_e.reshape(-1))
+        """Scatter-add [nel, nloc] element vectors into a global vector
+        (out of place, so it also runs under torch.func transforms)."""
+        return torch.zeros(self.ndof, dtype=r_e.dtype,
+                           device=r_e.device).index_add(
+            0, self._cat_conn_long.reshape(-1), r_e.reshape(-1))
 
     def residual_vector_adjoint(self, adjoint_density, U):
         """Assembled residual of an adjoint-jet density.  CUDA tensors run
@@ -384,3 +541,28 @@ def apply_bc_matrix(A, mask, diag=1.0):
     (zeroRowsColumns semantics)."""
     A = A * mask[:, None] * mask[None, :]
     return A + torch.diag(diag * (1.0 - mask))
+
+
+def apply_bc_vector(b, mask):
+    """Zero constrained entries of an assembled vector."""
+    return b * mask
+
+
+def bc_operator(action, mask, diag=1.0):
+    """Matrix-free ``apply_bc_matrix`` of an operator W -> A W."""
+    def op(w):
+        return mask * action(mask * w) + diag * (1.0 - mask) * w
+    return op
+
+
+def scatter_bcoo(asm, A_e):
+    """Element matrices assembled into a coalesced (duplicates summed)
+    torch sparse COO matrix [ndof, ndof] (the JAX package's BCOO)."""
+    ndof = asm.ndof
+    nel, nloc, _ = A_e.shape
+    c = asm._cat_conn_long
+    rows = c[:, :, None].expand(nel, nloc, nloc).reshape(-1)
+    cols = c[:, None, :].expand(nel, nloc, nloc).reshape(-1)
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                   A_e.reshape(-1), (ndof, ndof),
+                                   check_invariants=False).coalesce()

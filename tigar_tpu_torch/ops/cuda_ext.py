@@ -1,9 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources live in ``tigar_tpu_torch/csrc``: nine ``.cu`` files with
+The sources live in ``tigar_tpu_torch/csrc``: ten ``.cu`` files with
 plain C++ launchers (no PyTorch headers) and one binding file,
 ``bindings.cpp``, the only one that includes ``torch/extension.h``.
-``load()`` compiles all ten (ninja runs the compilers in parallel) with
+``load()`` compiles all eleven (ninja runs the compilers in parallel) with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` on first use, into
 ``build/tigar_kernels/`` under the repository root, and caches the module
 for the process.  Nothing is built at import time.
@@ -21,7 +21,7 @@ KERNELS = ("shell_residual", "tangent_stencil", "stencil_apply",
            "sumfac_apply", "iface_block", "shell_iface_residual",
            "shell_iface_tangent", "nitsche_iface_residual",
            "nitsche_iface_tangent", "tangent_elements", "elem_tangent_apply",
-           "elem_tangent_diagonal", "ell_spmv")
+           "elem_tangent_diagonal", "ell_spmv", "laplace_apply")
 
 _launches = {k: 0 for k in KERNELS}
 _ext = None
@@ -32,7 +32,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 SOURCES = ("bindings.cpp", "shell_residual.cu", "tangent_stencil.cu",
            "stencil_apply.cu", "sumfac_apply.cu", "iface_block.cu",
            "shell_interface.cu", "shell_nitsche.cu", "elem_tangent.cu",
-           "ell_spmv.cu")
+           "ell_spmv.cu", "laplace_apply.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "tigar_kernels")
 

@@ -1,7 +1,16 @@
-"""Multilevel smoothed-aggregation (SA) preconditioning (port of
-``grid_aggregates``, ``_lam_max_dinv_a``, ``_tentative_qr``,
-``_csr_to_ell``, ``_mlsa_apply`` and ``MultilevelSA`` of
-tigar_tpu/solvers/aggregation.py).
+"""Smoothed-aggregation (SA) preconditioning (port of
+tigar_tpu/solvers/aggregation.py: ``grid_aggregates``,
+``control_point_aggregates``, ``TwoLevelSA``, ``_lam_max_dinv_a``,
+``_tentative_qr``, ``_csr_to_ell``, ``_mlsa_apply`` and ``MultilevelSA``).
+
+``TwoLevelSA`` is the classic two-level cycle over control-point
+aggregates: weighted-Jacobi sweeps of the BC'd operator, a dense smoothed
+prolongation P [ndof, m] and a dense coarse inverse, all built on the host
+exactly as the JAX package builds them.  On the card its sweeps run
+through kernel K11 on an ELL copy of the operator (``ell_spmv`` in its
+Jacobi and residual modes); the dense products stay ``torch.matmul``.  On
+the CPU it runs the JAX package's coo scatter SpMV (``twolevel_apply_ref``,
+the plain version).
 
 The hierarchy is built on the host (numpy/scipy), as the JAX package does:
 geometric grid aggregation of the DoF positions (field-pure), near-kernel
@@ -38,6 +47,229 @@ def grid_aggregates(points, h):
     cells = cells.astype(np.int64)
     _, labels = np.unique(cells, axis=0, return_inverse=True)
     return labels.reshape(-1)
+
+
+def control_point_aggregates(spline, coarsen=3.0):
+    """Aggregate a spline space's scalar control points by physical
+    position: cell size = ``coarsen`` x the mean control-point spacing
+    (d-th root of bounding-box volume per point).  Needs an equal-order
+    space."""
+    for f in spline.space.fields:
+        if f is not spline.space.fields[0]:
+            raise ValueError("control_point_aggregates requires an "
+                             "equal-order space")
+    bnet = np.asarray(spline.bnet, dtype=np.float64)
+    pts = bnet[:, :-1] / bnet[:, -1:]
+    ext = pts.max(axis=0) - pts.min(axis=0)
+    ext = ext[ext > 0]
+    h = float(coarsen) * float(np.prod(ext) / pts.shape[0]) ** (1.0 /
+                                                                len(ext))
+    return grid_aggregates(pts, h)
+
+
+def _coo_amv(rows, cols, vals, x):
+    """The coo SpMV of tigar_tpu's TwoLevelSA (scatter-add of
+    vals * x[cols] into rows)."""
+    return torch.zeros_like(x).index_add_(0, rows, vals * x[cols])
+
+
+def twolevel_apply_ref(rows, cols, vals, om_dinv, P, Ac_inv, r, n_smooth):
+    """Plain version of the two-level cycle (tigar_tpu's
+    ``TwoLevelSA.apply32``) on float32 tensors: coo operator (rows, cols
+    int64), sweeps x + om_dinv (r - A x), the first from x = 0."""
+    x = om_dinv * r
+    for _ in range(n_smooth - 1):
+        x = x + om_dinv * (r - _coo_amv(rows, cols, vals, x))
+    d = r - _coo_amv(rows, cols, vals, x)
+    x = x + P @ (Ac_inv @ (d @ P))
+    for _ in range(n_smooth):
+        x = x + om_dinv * (r - _coo_amv(rows, cols, vals, x))
+    return x
+
+
+def twolevel_apply_ell(cols, vals, om_dinv, P, Ac_inv, r, n_smooth):
+    """The two-level cycle with the operator in ELL form through
+    ``ell_spmv`` (kernel K11 on the card): the fused Jacobi sweep and the
+    residual mode; the sweep from x = 0 is om_dinv r (no product)."""
+    x = om_dinv * r
+    for _ in range(n_smooth - 1):
+        x = ell_spmv(cols, vals, x, r, om_dinv, "jacobi")
+    d = ell_spmv(cols, vals, x, r, mode="residual")
+    x = x + P @ (Ac_inv @ (d @ P))
+    for _ in range(n_smooth):
+        x = ell_spmv(cols, vals, x, r, om_dinv, "jacobi")
+    return x
+
+
+class TwoLevelSA:
+    """Symmetric two-level smoothed-aggregation preconditioner (see module
+    docstring).  Build with ``from_coo`` / ``from_spline``; callable as
+    M(r) inside any Krylov loop (float32 inside, casts at the borders).
+    The coo operator (``_rows``, ``_cols``, ``_vals``) serves the plain
+    cycle, its ELL copy (``_ell_cols``, ``_ell_vals``) the card's."""
+
+    def __init__(self, rows, cols, vals, dinv, P, Ac_inv, omega, n_smooth,
+                 ndof):
+        import scipy.sparse as sp
+        self._rows = rows
+        self._cols = cols
+        self._vals = vals
+        self._dinv = dinv
+        self._P = P
+        self._Ac_inv = Ac_inv
+        self._omega = float(omega)
+        self._n_smooth = int(n_smooth)
+        self._ndof = int(ndof)
+        self._om_dinv = (self._omega * dinv).to(F32)
+        self._rows_l = rows.long()
+        self._cols_l = cols.long()
+        # the ELL copy of the deduplicated coo operator (host conversion)
+        A = sp.csr_matrix((vals.double().cpu().numpy(),
+                           (rows.cpu().numpy(), cols.cpu().numpy())),
+                          shape=(self._ndof, self._ndof))
+        e_cols, e_vals = _csr_to_ell(A)
+        self._ell_cols = torch.as_tensor(e_cols, device=vals.device)
+        self._ell_vals = torch.as_tensor(e_vals, dtype=F32,
+                                         device=vals.device)
+
+    @property
+    def n_coarse(self):
+        return self._Ac_inv.shape[0]
+
+    def apply32(self, r):
+        """The cycle on a float32 residual: K11 on the card, the coo plain
+        version on the CPU."""
+        if r.is_cuda:
+            return twolevel_apply_ell(self._ell_cols, self._ell_vals,
+                                      self._om_dinv, self._P, self._Ac_inv,
+                                      r, self._n_smooth)
+        return self.apply32_ref(r)
+
+    def apply32_ref(self, r):
+        return twolevel_apply_ref(self._rows_l, self._cols_l, self._vals,
+                                  self._om_dinv, self._P, self._Ac_inv, r,
+                                  self._n_smooth)
+
+    def __call__(self, r):
+        return self.apply32(r.to(F32)).to(r.dtype)
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, ndof, labels_dof, mask,
+                 omega_P=0.66, jacobi_omega=0.7, n_smooth=2,
+                 device="cuda"):
+        """Build from host coo arrays of the BC'd operator (the JAX
+        package's host numpy, copied): labels_dof [ndof] aggregate id per
+        DoF (-1 = constrained), mask [ndof] 1 free / 0 constrained,
+        omega_P the prolongation-smoothing weight (0 = plain aggregation);
+        the weights are fractions of 2 / lam_max(D^-1 A).  The arrays go
+        to ``device``."""
+        device = resolve_device(device)
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals, dtype=np.float64)
+        # padded connectivities carry out-of-range sentinel entries
+        ok = ((rows >= 0) & (rows < ndof) & (cols >= 0) & (cols < ndof))
+        rows, cols, vals = rows[ok], cols[ok], vals[ok]
+        labels = np.asarray(labels_dof)
+        m_h = np.asarray(mask, dtype=np.float64)
+
+        D = np.zeros(ndof)
+        on_diag = rows == cols
+        np.add.at(D, rows[on_diag], vals[on_diag])
+        D = np.where(D != 0.0, D, 1.0)
+
+        # spectral radius of D^-1 A by power iteration from a seeded start
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=ndof)
+        lam_max = 1.0
+        for _ in range(50):
+            y = np.zeros(ndof)
+            np.add.at(y, rows, vals * x[cols])
+            y /= D
+            lam_max = float(np.linalg.norm(y))
+            if lam_max == 0.0:
+                lam_max = 1.0
+                break
+            x = y / lam_max
+        om_eff = float(jacobi_omega) * 2.0 / lam_max
+        omP_eff = float(omega_P) * 2.0 / lam_max
+
+        used = np.unique(labels[labels >= 0])
+        m = used.size
+        if m == 0:
+            raise ValueError("no free DoFs to aggregate")
+        remap = -np.ones(int(labels.max()) + 1, dtype=np.int64)
+        remap[used] = np.arange(m)
+        lbl = np.where(labels >= 0, remap[np.maximum(labels, 0)], -1)
+
+        # tentative + smoothed prolongation, dense [ndof, m]
+        if ndof * m > 2.0e8:
+            raise ValueError(
+                f"SA coarse space too large to densify ({ndof} x {m}); "
+                "raise `coarsen`")
+        P = np.zeros((ndof, m))
+        free = lbl >= 0
+        P[np.nonzero(free)[0], lbl[free]] = 1.0
+        if omega_P:
+            keep = (lbl[cols] >= 0) & (m_h[rows] > 0)
+            r_k, c_k, v_k = rows[keep], cols[keep], vals[keep]
+            np.subtract.at(P, (r_k, lbl[c_k]), omP_eff * v_k / D[r_k])
+
+        # Galerkin coarse operator A_c = P^T A P (chunked over nnz)
+        AP = np.zeros((ndof, m))
+        step = max(1, int(2e7 // max(m, 1)))
+        for s in range(0, rows.size, step):
+            sl = slice(s, s + step)
+            np.add.at(AP, rows[sl], vals[sl, None] * P[cols[sl]])
+        Ac = P.T @ AP
+        dAc = np.diagonal(Ac).copy()
+        bad = dAc <= 0.0
+        if np.any(bad):
+            Ac[bad, :] = 0.0
+            Ac[:, bad] = 0.0
+            Ac[bad, bad] = 1.0
+        Ac_inv = np.linalg.inv(Ac)
+
+        # omega dinv: the damped-Jacobi weight at free DoFs, exactly 1 at
+        # constrained (unit-diagonal) ones
+        dinv = m_h / D + (1.0 - m_h) / om_eff
+
+        def dev(a, dtype=F32):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+
+        return cls(dev(rows, torch.int64), dev(cols, torch.int64),
+                   dev(vals), dev(dinv), dev(P), dev(Ac_inv), omega=om_eff,
+                   n_smooth=n_smooth, ndof=ndof)
+
+    @classmethod
+    def from_spline(cls, spline, form, U=None, params=None, coarsen=3.0,
+                    omega_P=0.66, jacobi_omega=0.7, n_smooth=2,
+                    labels=None, apply_bcs=True):
+        """Assemble the BC'd sparse tangent of ``form`` at ``U`` and build
+        the two-level SA preconditioner over control-point aggregates on
+        the spline's device.  Returns (preconditioner, coalesced sparse
+        COO matrix)."""
+        M_sp = spline.assemble_sparse(form, U=U, params=params,
+                                      apply_bcs=apply_bcs)
+        idx = M_sp.indices().cpu().numpy()
+        vals = M_sp.values().double().cpu().numpy()
+        if labels is None:
+            labels = control_point_aggregates(spline, coarsen=coarsen)
+        ncp = spline.space.fields[0].ncp
+        nf = spline.space.nfields
+        nagg = int(labels.max()) + 1
+        lbl_dof = np.concatenate([labels + f * nagg for f in range(nf)])
+        if lbl_dof.shape[0] != spline.ndof or spline.ndof != nf * ncp:
+            raise ValueError("TwoLevelSA.from_spline needs an equal-order "
+                             "space")
+        m_h = (spline.mask.double().cpu().numpy() if apply_bcs
+               else np.ones(spline.ndof))
+        lbl_dof = np.where(m_h > 0, lbl_dof, -1)
+        pre = cls.from_coo(idx[0], idx[1], vals, spline.ndof, lbl_dof, m_h,
+                           omega_P=omega_P, jacobi_omega=jacobi_omega,
+                           n_smooth=n_smooth, device=spline.device)
+        return pre, M_sp
 
 
 def _lam_max_dinv_a(A_csr, D, n_iter=50, seed=0):
@@ -330,3 +562,36 @@ class MultilevelSA:
                 "a dense solve")
         return cls(levels, coarse_inv, ndof, n_smooth, cycle=cycle,
                    fine_op=fine_op, fine_mask=fine_mask)
+
+    @classmethod
+    def from_spline(cls, spline, form, U=None, params=None, coarsen=3.0,
+                    omega_P=0.66, jacobi_omega=0.7, n_smooth=2,
+                    coarse_size=800, max_levels=12, apply_bcs=True,
+                    near_kernel="linear", cycle="V"):
+        """Assemble the BC'd sparse tangent of ``form`` at ``U`` and build
+        the multilevel SA preconditioner on the spline's device; DoF
+        positions come from the dehomogenized control net, replicated per
+        field.  Returns (preconditioner, coalesced sparse COO matrix)."""
+        for f in spline.space.fields:
+            if f is not spline.space.fields[0]:
+                raise ValueError("MultilevelSA.from_spline requires an "
+                                 "equal-order space")
+        M_sp = spline.assemble_sparse(form, U=U, params=params,
+                                      apply_bcs=apply_bcs)
+        idx = M_sp.indices().cpu().numpy()
+        vals = M_sp.values().double().cpu().numpy()
+        bnet = np.asarray(spline.bnet, dtype=np.float64)
+        pts = bnet[:, :-1] / bnet[:, -1:]
+        nf = spline.space.nfields
+        pts_dof = np.tile(pts, (nf, 1))
+        m_h = (spline.mask.double().cpu().numpy() if apply_bcs
+               else np.ones(spline.ndof))
+        ncp = spline.space.fields[0].ncp
+        field_of = np.repeat(np.arange(nf), ncp)
+        pre = cls.from_coo(idx[0], idx[1], vals, spline.ndof, pts_dof, m_h,
+                           coarsen=coarsen, omega_P=omega_P,
+                           jacobi_omega=jacobi_omega, n_smooth=n_smooth,
+                           coarse_size=coarse_size, max_levels=max_levels,
+                           field_of=field_of, near_kernel=near_kernel,
+                           cycle=cycle, device=spline.device)
+        return pre, M_sp

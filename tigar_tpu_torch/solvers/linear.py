@@ -1,18 +1,27 @@
-"""Matrix-free Krylov building blocks (port of ``jacobi_preconditioner``,
-``cg_fixed_iters``, ``cg_device_iters``, ``fcg_device_iters``,
-``bicgstab_device_iters`` and the CG / BiCGStab state and step helpers of
-tigar_tpu/solvers/linear.py).
+"""Linear solvers (port of tigar_tpu/solvers/linear.py): the dense direct
+solve, ``solve_krylov``, ``jacobi_preconditioner``, ``cg_fixed_iters``,
+``cg_device_iters``, ``fcg_device_iters``, ``bicgstab_device_iters`` and
+the CG / BiCGStab state and step helpers.
 
 The loops are plain Python loops of device work: the step lengths stay
 device scalars behind ``torch.where`` guards, so nothing inside the loop
 waits for the host.  The ``*_device_iters`` solvers take an optional
 relative-residual exit ``tol``, read on the host every ``check_every``
 iterations (one scalar fetch per check), as the JAX package's do.
+``solve_krylov`` reads the residual norm every iteration, the exit test of
+jax.scipy's solvers.  GMRES is not ported (no path of either package
+selects it yet).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def solve_dense(A, b):
+    """Dense direct solve (LU, ``torch.linalg.solve``) on the operands'
+    device, in their type."""
+    return torch.linalg.solve(A, b)
 
 
 def jacobi_preconditioner(diag):
@@ -29,12 +38,12 @@ def _safe_div(num, den):
     return torch.where(den != 0.0, num / den, torch.zeros_like(num))
 
 
-def cg_fixed_iters(action, b, n_iters, M=None):
-    """Preconditioned CG from a zero initial guess with a fixed iteration
-    count (no data-dependent exit).  Returns (x, r) with r the final
-    recurrence residual."""
+def cg_fixed_iters(action, b, n_iters, M=None, x0=None):
+    """Preconditioned CG from ``x0`` (zero by default) with a fixed
+    iteration count (no data-dependent exit).  Returns (x, r) with r the
+    final recurrence residual."""
     M = _identity if M is None else M
-    st = cg_state_init(action, M, b, None)
+    st = cg_state_init(action, M, b, x0)
     for _ in range(int(n_iters)):
         st = cg_step(action, M, st)
     return st[0], st[1]
@@ -88,6 +97,10 @@ def bicgstab_step(action, M, st):
     x = x + alpha * phat + omega * shat
     r = s - omega * t
     return (x, r, rhat, rho_new, alpha, omega, v, p)
+
+
+KRYLOV_STEPS = {"cg": (cg_state_init, cg_step),
+                "bicgstab": (bicgstab_state_init, bicgstab_step)}
 
 
 def _converged(r, tol, bnorm, it, check_every):
@@ -150,3 +163,31 @@ def bicgstab_device_iters(action, b, n_iters, M=None, x0=None, tol=None,
         if _converged(st[1], tol, bnorm, it, check_every):
             break
     return st[0], st[1]
+
+
+def solve_krylov(action, b, x0=None, method="cg", tol=1e-12, atol=0.0,
+                 maxiter=None, M=None, info=None):
+    """Solve action(x) = b matrix-free ("cg" for SPD operators, or
+    "bicgstab"), stopping at |r| <= max(tol |b|, atol) or after ``maxiter``
+    iterations (10 n by default, as jax.scipy).  ``info``, when a dict, is
+    filled with the iteration count and the final |r| / |b|."""
+    if method == "gmres":
+        raise NotImplementedError("GMRES is not ported: no path of the "
+                                  "package selects it yet")
+    if method not in KRYLOV_STEPS:
+        raise ValueError(f"unknown Krylov method {method!r}")
+    init, step = KRYLOV_STEPS[method]
+    M = _identity if M is None else M
+    maxiter = 10 * b.numel() if maxiter is None else int(maxiter)
+    bnorm = float(torch.linalg.norm(b))
+    stop = max(tol * bnorm, atol)
+    st = init(action, M, b, x0)
+    it = 0
+    rnorm = float(torch.linalg.norm(st[1]))
+    while rnorm > stop and it < maxiter:
+        st = step(action, M, st)
+        it += 1
+        rnorm = float(torch.linalg.norm(st[1]))
+    if info is not None:
+        info.update(iters=it, rel=rnorm / bnorm if bnorm else rnorm)
+    return st[0]
