@@ -2,9 +2,10 @@
 """GPU smoke run of tigar_tpu_torch on one NVIDIA card: the production
 Newton path of the clamped SVK Kirchhoff-Love shell (stencil multigrid,
 and the space-agnostic smoothed-aggregation tier), the two-patch coupled
-shells, the matrix-free 3D Poisson multigrid path and the generic form
+shells, the matrix-free 3D Poisson multigrid path, the generic form
 path (2D Poisson through user-written densities, mixed-precision
-refinement, smoothed-aggregation CG).
+refinement, smoothed-aggregation CG) and the shell with nonlocal penalty
+self-contact (the reef-knot demo).
 
     python3 chip_smoke.py
 
@@ -69,9 +70,8 @@ Phases, each fatal on failure (nothing is caught):
      10 D/h_el.  K8/K9 against their plain versions (f32 and f64, on the
      interface of every level: 768, 384 and 192 points), bounded by the
      operations their function needs (tigar_tpu_torch/csrc/
-     nitsche_opcount.cpp, built with the host compiler); K9's device
-     time is its CUDA-event time (a torch.profiler session over K9 ends
-     the process); the best of 3 warm f32
+     nitsche_opcount.cpp, built with the host compiler); the best of 3
+     warm f32
      steps; the full solve with the f32 phase first (as the bench) with
      every launch count reset just before it and read just after; the
      floor certificate with the bench's Nitsche guard floor_rel = 1e-8;
@@ -112,6 +112,27 @@ Phases, each fatal on failure (nothing is caught):
      (sa_levels=4, within 1e-8), counts reset around each solve; the nel=8
      card-vs-CPU reference (direct, cg, refine_solve, sa_cg: U within
      1e-10); the profile of one refinement sweep.
+ 12. penalty self-contact: demos/kl_shell_svk/reef_knot_contact.py at its
+     reference workload class (NEL=96 MG=1 MIXED=1: p=2, 96^2 elements,
+     28,812 DoFs, 9,604 collocation points, k=1e7, r_max=0.06,
+     r_self=0.25, Newton to rel 1e-4 with 40 f32 CG iterations under a
+     5-level f32 V-cycle of AD shell actions).  With phase 2, before any
+     other profiler session: K13/K14 (contact residual and tangent
+     action, f32 and f64) against their plain versions on the 96^2
+     points at tests/test_contact.py's active state (k=1e4, r_max=0.3,
+     r_self=0.05; U = 0.01 N(0, 1), numpy seed 0), f64 1e-12 and f32 1e-5
+     of the largest entry, their pair counts, bounds and device times.
+     After the other phases' profiles (so that their sessions run before
+     any CUDA graph exists): one time step through the demo's entry
+     point
+     (tigar_tpu_torch.demos.reef_knot_contact.run) with every launch
+     count reset just before it and read just after, converging to rel <
+     1e-4 within one Newton iteration of the JAX demo's count; K13/K14 at
+     the demo's own contact at the state after the step (no profiler);
+     the card against the CPU plain versions at NEL=6 (MG=0) and NEL=12
+     (MG=1, the form-based V-cycle), f64 CG of 10 iterations (the same
+     Newton count, U within 1e-10); the profile of one Newton
+     correction's CG.
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -143,12 +164,6 @@ MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 CARD = None
-
-# A torch.profiler session over K9 after the kernel phases and K8's
-# sessions ended this script with a segmentation fault, so K9's device time
-# is its CUDA-event time.  scripts/k9_profile_check.py sets this to put K9
-# back into the profiler sessions (with the bounds-checked kernel build).
-PROFILE_K9 = False
 
 
 def say(msg):
@@ -223,10 +238,13 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps, match):
+def device_ms(fn, reps, match, per_call=1):
     """Device time per call of the kernels whose name contains ``match``
     over ``reps`` calls (torch.profiler, device-side events only), and
-    the number of such kernel launches per call."""
+    the launches the session recorded per call.  A call launches
+    ``per_call`` such kernels; a session that records another number is
+    not a measurement (later sessions of this script recorded 0.05-0.9 of
+    the launches on an H100), and the time is then None."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     fn()
@@ -239,10 +257,10 @@ def device_ms(fn, reps, match):
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and match in e.key
           and e.self_device_time_total > 0]
-    if not ev:
-        return None, 0
-    return (sum(e.self_device_time_total for e in ev) / 1e3 / reps,
-            sum(e.count for e in ev) / reps)
+    recorded = sum(e.count for e in ev) / reps
+    if recorded != per_call:
+        return None, recorded
+    return sum(e.self_device_time_total for e in ev) / 1e3 / reps, recorded
 
 
 def kernel_device_times(rec):
@@ -251,14 +269,19 @@ def kernel_device_times(rec):
     timing."""
     for phases in rec.values():
         for p in phases:
-            if "probe" not in p:
-                continue
-            fn, reps, match = p.pop("probe")
-            p["dev_ms"], per_call = device_ms(fn, reps, match)
-            dev = ("not measured" if p["dev_ms"] is None
-                   else f"{p['dev_ms']:.4f} ms")
-            say(f"{p['name']}: device time per call ({match}, {per_call:g} "
-                f"kernels per call) {dev}")
+            if "probe" in p:
+                probe_device_time(p)
+
+
+def probe_device_time(p):
+    """Takes the profiler's device time of the phase record ``p``."""
+    fn, reps, match, per_call = p.pop("probe")
+    p["dev_ms"], recorded = device_ms(fn, reps, match, per_call)
+    dev = (f"not measured (the session recorded {recorded:g} of "
+           f"{per_call} launches a call)" if p["dev_ms"] is None
+           else f"{p['dev_ms']:.4f} ms")
+    say(f"{p['name']}: device time per call ({match}, {per_call} "
+        f"launches a call) {dev}")
 
 
 def bound(nbytes, flops, dtype):
@@ -275,10 +298,11 @@ def nbytes(*ts):
 
 
 def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
-            work=None):
+            work=None, per_call=1):
     """Kernel against twin on the same inputs: errors, times, the gate.
-    ``match`` names the kernel for the profiler's device time per launch
-    (taken later by ``kernel_device_times``); ``work`` = (bytes, flops,
+    ``match`` names the kernel for the profiler's device time (taken later
+    by ``kernel_device_times``), which a call launches ``per_call``
+    times; ``work`` = (bytes, flops,
     dtype) gives its bound; ``twin_reps`` 0 leaves the twin untimed."""
     yk = kernel()
     yt = twin()
@@ -298,7 +322,7 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
         raise SystemExit(f"phase {name} FAILED: rel err {rel:.3e} > {tol:g}")
     entry = dict(name=name, rel=rel, abs=abs_err, ms=ms, plain_ms=plain_ms)
     if match is not None:
-        entry["probe"] = (kernel, reps, match)
+        entry["probe"] = (kernel, reps, match, per_call)
     if work is not None:
         entry["bound_ms"], entry["bound_by"] = bound(*work)
         say(f"    bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
@@ -497,7 +521,8 @@ def sumfac_phases(device):
         compare(f"K4 sumfac_apply {tag} {NEL3}^3 p={P3}",
                 lambda d=data, w=W, m=m: sumfac_apply(d, w, 1.0, 0.0, m),
                 lambda d=data, w=W, m=m: sumfac_apply_ref(d, w, 1.0, 0.0, m),
-                TOL[tag], 50, 3, rec, match="sumfac", work=work)
+                TOL[tag], 50, 3, rec, match="sumfac", work=work,
+                per_call=2)
     small = (("periodic 3D nel=8 p=2", 3, 2, 8, True),
              ("2D nel=64 p=3", 2, 3, 64, False))
     for label, dim, p, nel, per in small:
@@ -1102,8 +1127,10 @@ def nitsche_kernel_phases(ns, rec):
             # K9 reads the support's values, pos_a/pos_b, the side tables
             # (not conn), wq and surfJ, and writes K [m, m] (zeroed first)
             us = U[idx.long()]
-            k9 = (lambda c=c, us=us: c.tangent_block_cuda(
-                us, pos_a, pos_b, c.params))
+            # the level's own positions bound now: the timed probe runs
+            # again after this loop has moved on to the coarser levels
+            k9 = (lambda c=c, us=us, pa=pos_a, pb=pos_b:
+                  c.tangent_block_cuda(us, pa, pb, c.params))
             if timed and tag == "f64":
                 # the local memory the context reserves for K9 f64's stack
                 lim0 = cuda_ext.load().stack_limit()
@@ -1118,23 +1145,13 @@ def nitsche_kernel_phases(ns, rec):
                     f"device memory outside torch's allocator "
                     f"{out0 / 2 ** 30:.3f} -> {out1 / 2 ** 30:.3f} GiB")
             compare(f"K9 nitsche_iface_tangent {tag} nq={nq} m={m}", k9,
-                    lambda c=c, us=us: iform_tangent_block_ref(
-                        c, us, pos_a, pos_b, c.params),
+                    lambda c=c, us=us, pa=pos_a, pb=pos_b:
+                    iform_tangent_block_ref(c, us, pa, pb, c.params),
                     tol, 10 if timed else 2, 1 if timed else 0,
                     rec["nitsche_iface_tangent"],
-                    match=("nitsche_tangent_kernel"
-                           if timed and PROFILE_K9 else None),
+                    match="nitsche_tangent_kernel" if timed else None,
                     work=(nbytes(us, pos_a, pos_b, c.wq, c.surfJ, *tabs)
                           + m * m * es, float(nq * need9), dt))
-            if timed and not PROFILE_K9:
-                # a torch.profiler session over K9 ends this process with
-                # a segmentation fault once K9 and its plain version have
-                # run here: its device time is the CUDA-event time (one
-                # launch of milliseconds a call)
-                p = rec["nitsche_iface_tangent"][-1]
-                p["dev_ms"] = p["ms"]
-                say(f"{p['name']}: device time per call (CUDA events, "
-                    f"not profiled) {p['ms']:.4f} ms")
 
 
 def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
@@ -1283,7 +1300,8 @@ def sa_kernel_phases(ns, U64, rec):
                         2.0 * nel * nloc * nloc, dt)
             compare(f"K10 elem_tangent {what} {tag} nel={nel}", kern, plain,
                     TOL[tag], 50, 5, rec["elem_tangent_apply"],
-                    match="elem_", work=work)
+                    match="elem_", work=work,
+                    per_call=1 if what == "diagonal" else 2)
             if what == "masked":
                 # the BC'd operator: masked E plus the unit diagonal at
                 # the constrained DoFs
@@ -1468,8 +1486,8 @@ def rel_diff(a, b):
 def fastpath_kernel_phases(sp, rec):
     """K12 against its plain version at the path's shapes (2D p=2 256^2)
     and at 2D p=3 32^2 and 3D p=2 16^3, and against the f64 AD tangent
-    action; the library yardstick is the same BC'd operator as one f32
-    torch.sparse CSR matrix applied with ``@``."""
+    action; the library yardstick, at each shape, is the same BC'd
+    operator as one f32 torch.sparse CSR matrix applied with ``@``."""
     from tigar_tpu_torch.ops import fastpath
     rec.setdefault("laplace_apply", [])
     dev = sp.device
@@ -1493,7 +1511,7 @@ def fastpath_kernel_phases(sp, rec):
                 lambda a=(A1, A2, connT, m32, W32):
                 fastpath.laplace_apply_ref(*a),
                 GP_TOL["k12"], 50, 5, rec["laplace_apply"],
-                match="laplace_", work=work)
+                match="laplace_", work=work, per_call=2)
         ref = s.tangent_action(gp_a, torch.zeros_like(W), W)
         out = fastpath.laplace_apply(A1, A2, connT, s.mask, W)
         ad = float((out - ref).abs().max() / ref.abs().max())
@@ -1502,16 +1520,15 @@ def fastpath_kernel_phases(sp, rec):
         if not ad <= GP_TOL["k12_ad"]:
             raise SystemExit(f"K12 against the AD tangent action FAILED "
                              f"({label})")
-        if s is sp:
-            A = s.assemble_sparse(gp_a).to(torch.float32).to_sparse_csr()
-            yk = fastpath.laplace_apply(A1, A2, connT, m32, W32)
-            lib_err = rel_diff(torch.mv(A, W32), yk)
-            rec["laplace_apply"][-1]["library_ms"] = cuda_ms(
-                lambda A=A, x=W32: torch.mv(A, x), 50)
-            say(f"    library yardstick torch.sparse CSR f32 @ W "
-                f"({A._nnz()} entries): "
-                f"{rec['laplace_apply'][-1]['library_ms']:.4f} ms, rel diff "
-                f"{lib_err:.1e}")
+        A = s.assemble_sparse(gp_a).to(torch.float32).to_sparse_csr()
+        yk = fastpath.laplace_apply(A1, A2, connT, m32, W32)
+        lib_err = rel_diff(torch.mv(A, W32), yk)
+        rec["laplace_apply"][-1]["library_ms"] = cuda_ms(
+            lambda A=A, x=W32: torch.mv(A, x), 50)
+        say(f"    library yardstick torch.sparse CSR f32 @ W ({label}, "
+            f"{A._nnz()} entries): "
+            f"{rec['laplace_apply'][-1]['library_ms']:.4f} ms, rel diff "
+            f"{lib_err:.1e}")
 
 
 def twolevel_kernel_phases(pre, rec):
@@ -1732,6 +1749,244 @@ def profile_refine_sweep(gp):
             f"{count:6d} x  {key[:90]}")
 
 
+# -- phase 12: penalty self-contact, the reef-knot demo (K13, K14) ----------
+
+# demos/kl_shell_svk/reef_knot_contact.py with NEL=96 MG=1 MIXED=1: 28,812
+# DoFs, 9,604 collocation points, a 5-level f32 V-cycle, 40 f32 CG
+# iterations a Newton correction
+RK_NEL = 96
+RK_ACTIVE = dict(k=1e4, r_max=0.3, r_self=0.05)   # tests/test_contact.py:29
+# the JAX demo's Newton count (residual evaluations) for step 1 at NEL=96
+# MG=1 MIXED=1, run on a CPU (PERF.md section 6)
+RK_JAX_NEWTON = 7
+# CG iterations of the card-vs-CPU references (the CPU runs apply the AD
+# shell action eagerly, ~0.1 s a call)
+RK_REF_CG = 10
+RK_TOL = {"f64": 1e-12, "f32": 1e-5, "ref": 1e-10}
+
+
+def contact_pair_counts(c, x):
+    """(live pairs, interacting pairs: live with r < r_max) at points x."""
+    n, live, inter = x.shape[0], 0, 0
+    for i0 in range(0, n, 1024):
+        d2 = ((x[i0:i0 + 1024, None, :] - x[None, :, :]) ** 2).sum(-1)
+        m = c.pair_mask[i0:i0 + 1024]
+        live += int(m.sum())
+        inter += int((m & (d2 < c.r_max ** 2)).sum())
+    return live, inter
+
+
+def contact_kernel_phases(c, U, W, label, rec, profile):
+    """K13 and K14 against their plain versions at the state U (point
+    perturbations P W for K14), in f64 and f32.  Their bound: the n^2
+    mask bytes, the points, weights (and perturbations) read once and the
+    result written once, against the kernels' operations on this state's
+    pairs: 8 a live pair (the squared distance), 10 more an interacting
+    one for K13, 28 more for K14.  With ``profile`` each kernel's device
+    time is taken right away (torch.profiler)."""
+    from tigar_tpu_torch.ops import contact as oc
+    for dt in (torch.float64, torch.float32):
+        tname = "f64" if dt == torch.float64 else "f32"
+        cc = c if dt == torch.float64 else c.astype(dt)
+        x = cc.positions(U.to(dt)).contiguous()
+        v = cc._apply_P(W.to(dt)).contiguous()
+        n = x.shape[0]
+        live, inter = contact_pair_counts(cc, x.double())
+        say(f"contact state {label} {tname}: n={n}, live pairs {live}, "
+            f"interacting pairs (live, r < r_max) {inter}")
+        io = n * n + x.element_size() * (2 * x.numel() + n)
+        for name, kern, plain, work in (
+                ("contact_residual",
+                 lambda: oc.contact_forces(x, cc.quad_w, cc.pair_mask, cc.k,
+                                           cc.r_max),
+                 lambda: oc.contact_forces_ref(x, cc.quad_w, cc.pair_mask,
+                                               cc.phi, cc.r_max,
+                                               cc.row_chunk),
+                 (io, 8.0 * live + 10.0 * inter, dt)),
+                ("contact_tangent",
+                 lambda: oc.contact_hvp(x, v, cc.quad_w, cc.pair_mask, cc.k,
+                                        cc.r_max),
+                 lambda: oc.contact_hvp_ref(x, v, cc.quad_w, cc.pair_mask,
+                                            cc.phi, cc.r_max, cc.row_chunk),
+                 (io + x.element_size() * v.numel(),
+                  8.0 * live + 28.0 * inter, dt))):
+            kn = "K13" if name == "contact_residual" else "K14"
+            rec.setdefault(name, [])
+            yk, yp = kern(), plain()
+            torch.cuda.synchronize()
+            if float(yp.abs().max()) == 0.0:
+                # no interacting pair: both sides must be exactly zero
+                err = float(yk.abs().max())
+                say(f"phase {kn} {name} {tname} {label} n={n}: no "
+                    f"interacting pair, max |kernel| {err:.3e}")
+                if err != 0.0:
+                    raise SystemExit(f"{kn} {name} FAILED at {label}")
+                rec[name].append(dict(name=f"{kn} {name} {tname} {label}",
+                                      rel=0.0, abs=0.0))
+                continue
+            compare(f"{kn} {name} {tname} {label} n={n}", kern, plain,
+                    RK_TOL[tname], 20 if profile else 5,
+                    2 if profile else 0, rec[name],
+                    match="contact_pairs_kernel" if profile else None,
+                    work=work if profile else None)
+            if profile:
+                probe_device_time(rec[name][-1])
+
+
+def contact_early(device, rec):
+    """Phase 12, step 1a, with phase 2's kernel checks and before any
+    other profiler session: K13/K14 on the 96^2 spline's 9,604 points at
+    tests/test_contact.py's active state, U = 0.01 N(0, 1) and W ~ N(0, 1)
+    from numpy seed 0; their device times."""
+    from tigar_tpu_torch.contact import PointContact
+    from tigar_tpu_torch.demos.reef_knot_contact import build_spline
+    t0 = time.perf_counter()
+    sp = build_spline(RK_NEL, device)
+    c = PointContact(sp, **RK_ACTIVE)
+    torch.cuda.synchronize()
+    say(f"contact setup (96^2 spline, {c.X.shape[0]} points, "
+        f"{RK_ACTIVE}): {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    U = torch.as_tensor(rng.normal(size=sp.ndof) * 0.01, device=device)
+    W = torch.as_tensor(rng.normal(size=sp.ndof), device=device)
+    contact_kernel_phases(c, U, W, "(a)", rec, profile=True)
+
+
+def reef_knot_path(device, rec):
+    """Phase 12, steps 1b-4: the demo step at 96^2 with every launch count
+    reset just before it and read just after, K13/K14 at the state after
+    the step, the card-vs-CPU references and the CG profile.  Returns the
+    step's launches."""
+    from tigar_tpu_torch.ops import cuda_ext
+    from tigar_tpu_torch.contact import PointContact
+    from tigar_tpu_torch.demos import reef_knot_contact as demo
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda_ext.reset_counts()
+    U, hist, energy = demo.run(RK_NEL, 1, mixed=True, mg=True, device=device,
+                               log=say)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_ext.counts()
+    rel_final = hist[0][-1]
+    say(f"reef-knot demo (NEL={RK_NEL}, MG=1, MIXED=1): {wall:.3f} s "
+        f"with setup; step 1 in {len(hist[0])} residual evaluations "
+        f"(JAX reference {RK_JAX_NEWTON}), final rel {rel_final:.3e}; "
+        f"contact energy {energy:.6e}; K13 launches "
+        f"{launches['contact_residual']}, K14 launches "
+        f"{launches['contact_tangent']}")
+    if not (bool(torch.isfinite(U).all()) and rel_final < demo.REL_TOL
+            and abs(len(hist[0]) - RK_JAX_NEWTON) <= 1
+            and launches["contact_residual"] > 0
+            and launches["contact_tangent"] > 0):
+        raise SystemExit("reef-knot demo step FAILED")
+
+    # step 2: the demo's own contact at the state after the step
+    c = PointContact(demo.build_spline(RK_NEL, device), **demo.CONTACT)
+    W = torch.as_tensor(np.random.default_rng(1).normal(size=U.numel()),
+                        device=device)
+    contact_kernel_phases(c, U, W, "(b)", rec, profile=False)
+
+    # step 3: card against the CPU plain versions
+    for nel, mg in ((6, False), (12, True)):
+        out = {}
+        for dev in (device, "cpu"):
+            t1 = time.perf_counter()
+            Ux, hx, _ = demo.run(nel, 1, mixed=False, mg=mg,
+                                 cg_iters=RK_REF_CG, device=dev)
+            out[str(dev)] = (Ux.cpu(), len(hx[0]), time.perf_counter() - t1)
+        (Ug, ng, tg), (Uc, nc, tc) = out[str(device)], out["cpu"]
+        d = rel_diff(Ug, Uc)
+        say(f"reef-knot card-vs-CPU (NEL={nel}, MG={int(mg)}, MIXED=0, "
+            f"{RK_REF_CG} CG iterations): Newton card {ng} ({tg:.1f} s), "
+            f"CPU {nc} ({tc:.1f} s); max |U_card - U_cpu| / max |U_cpu| "
+            f"{d:.3e} (bound {RK_TOL['ref']:g})")
+        if not (ng == nc and d <= RK_TOL["ref"]):
+            raise SystemExit(f"reef-knot card-vs-CPU reference FAILED "
+                             f"(NEL={nel})")
+    profile_reef_knot_cg(U, device)
+    return {k: launches[k] for k in ("contact_residual", "contact_tangent")}
+
+
+def profile_reef_knot_cg(U, device):
+    """Phase 12, step 4: torch.profiler over one Newton correction's CG
+    (40 f32 iterations, the V-cycle, K14) at the state after the step:
+    device busy share, K14's share, and the f32 AD shell actions' share
+    (their CUDA-event time a call, one graph replay at a time, times the
+    calls the CG made)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    from tigar_tpu_torch.demos import reef_knot_contact as demo
+    from tigar_tpu_torch.ops import cuda_ext
+    from tigar_tpu_torch.solvers.linear import cg_device_iters
+
+    rk = demo.ReefKnot(RK_NEL, device=device)
+    r = rk.residual(U, U).float()
+    A, M, _ = rk.operator(U, U)
+    calls = [0] * len(rk.M.levels)
+    shells = [rk.M._actions[lev] for lev in range(len(calls) - 1)]
+
+    def counted(lev, fn):
+        def f(W):
+            calls[lev] += 1
+            return fn(W)
+        return f
+
+    for lev, fn in enumerate(shells):
+        rk.M._actions[lev] = counted(lev, fn)
+
+    def solve():
+        return cg_device_iters(A, r, rk.cg_iters, M=M)[0]
+
+    wall = best_of_3(solve)
+    for i in range(len(calls)):
+        calls[i] = 0
+    k14_0 = cuda_ext.counts()["contact_tangent"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    k14_n = cuda_ext.counts()["contact_tangent"] - k14_0
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and e.self_device_time_total > 0]
+    if not rows:
+        say("profile reef-knot CG: no device time recorded (not measured)")
+        return
+    busy = sum(rw[2] for rw in rows) / 1e3
+    k14 = sum(rw[2] for rw in rows if "contact_pairs_kernel" in rw[0]) / 1e3
+    k14_rec = sum(rw[1] for rw in rows if "contact_pairs_kernel" in rw[0])
+    # the session is a measurement only if it recorded every K14 launch
+    # and its busy time fits in the profiled wall
+    ok = k14_rec == k14_n and busy <= prof_wall * 1e3
+    say(f"profile reef-knot CG session: K14 launches recorded {k14_rec} of "
+        f"{k14_n}, device busy {busy:.3f} ms of {prof_wall * 1e3:.3f} ms "
+        f"profiled wall: "
+        + ("complete" if ok else "NOT a measurement, the shares below "
+           "are not measured"))
+    # the fine shell action runs once more a CG iteration inside A
+    calls[0] += rk.cg_iters + 1
+    per = []
+    for lev, fn in enumerate(shells):
+        W = torch.randn(rk.M.levels[lev]["dinv"].shape[0], device=device)
+        per.append(cuda_ms(lambda fn=fn, W=W: fn(W), 5))
+    shell = sum(c * t for c, t in zip(calls, per))
+    say(f"profile reef-knot CG ({rk.cg_iters} f32 iterations at the state "
+        f"after step 1): device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
+        f"un-profiled wall (busy share {busy / wall / 1e3:.3f}); K14 "
+        f"{k14:.3f} ms ({k14 / busy:.3f} of busy); f32 AD shell actions "
+        f"{shell:.3f} ms ({shell / busy:.3f} of busy, {shell / wall / 1e3:.3f} "
+        f"of the un-profiled wall; calls a level {calls[:-1]}, CUDA-event ms "
+        f"a call {[round(t, 4) for t in per]})")
+    for key, count, us in sorted(rows, key=lambda rw: -rw[2])[:8]:
+        say(f"    {us / 1e3:9.3f} ms  {us / 1e3 / busy:6.3f} of busy  "
+            f"{count:6d} x  {key[:90]}")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -1760,6 +2015,8 @@ def main():
 
     rec = kernel_phases(ns)
     rec["sumfac_apply"] = sumfac_phases(device)
+    # K13/K14 and their profiler session come first of all the sessions
+    contact_early(device, rec)
 
     # -- the shell main path: warm steps, then the solve with every launch
     # count reset just before it and read just after -----------------------
@@ -1861,6 +2118,7 @@ def main():
     launches["ell_spmv_twolevel"] = by_path["generic_sa_two_level"][
         "ell_spmv_twolevel"] = gp["launches"]["sa_two_level"]["ell_spmv"]
 
+
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
     best_polish = best_of_3(lambda: ns.polish_step(U1))
@@ -1881,14 +2139,9 @@ def main():
     say(f"two-patch Nitsche steps at the solution: production (f32) best "
         f"of 3 {nit_step * 1e3:.3f} ms, polish (frozen operators) "
         f"{nit_polish * 1e3:.3f} ms")
-    # the production step builds K9 (kept out of profiler sessions, see
-    # nitsche_kernel_phases): its share is timed with CUDA events instead
-    k9_ms = cuda_ms(lambda: ns_nit._build(ns_nit.asm_b32, Unit.float()), 3)
-    say(f"two-patch Nitsche f32 operator build at the solution (K2 per "
-        f"patch, K9, Schwarz inverse, damping estimate): {k9_ms:.3f} ms of "
-        f"CUDA-event time")
     say("two-patch Nitsche profile:")
-    profile_steps(ns_nit, Unit, {"polish step": nit_polish})
+    profile_steps(ns_nit, Unit, {"production step": nit_step,
+                                 "polish step": nit_polish})
     sa_step = best_of_3(lambda: ns_sa.step(Usa))
     sa_polish = best_of_3(lambda: ns_sa.polish_step(Usa))
     say(f"SANewton steps at the solution: production (f32) best of 3 "
@@ -1898,6 +2151,14 @@ def main():
     profile_steps(ns_sa, Usa, {"production step": sa_step,
                                "polish step": sa_polish})
     profile_refine_sweep(gp)
+
+    # -- phase 12: penalty self-contact, the reef-knot demo at 96^2, after
+    # the other phases' profiler sessions, which so run before any of its
+    # CUDA graphs exists ---------------------------------------------------
+    t0 = time.time()
+    by_path["reef_knot"] = reef_knot_path(device, rec)
+    launches.update(by_path["reef_knot"])
+    say(f"phase 12 (reef-knot contact path) took {time.time() - t0:.1f} s")
 
     # -- small-input reference: card against the CPU twins ----------------
     ns_g, _ = build_solver(8, device, cg_iters=40)
@@ -1945,7 +2206,11 @@ def main():
            "laplace_apply": ("tigar_tpu_torch/csrc/laplace_apply.cu",
                              "tigar_tpu/ops/fastpath.py:57"),
            "ell_spmv_twolevel": ("tigar_tpu_torch/csrc/ell_spmv.cu",
-                                 "tigar_tpu/solvers/aggregation.py:113")}
+                                 "tigar_tpu/solvers/aggregation.py:113"),
+           "contact_residual": ("tigar_tpu_torch/csrc/contact_pairs.cu",
+                                "tigar_tpu/contact.py:205"),
+           "contact_tangent": ("tigar_tpu_torch/csrc/contact_pairs.cu",
+                               "tigar_tpu/contact.py:210")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
@@ -1959,7 +2224,8 @@ def main():
             "elem_tangent_apply": "masked f32",
             "ell_spmv": "P apply f32 level 0",
             "laplace_apply": f"2D p=2 nel={GP_NEL}",
-            "ell_spmv_twolevel": "two-level A jacobi"}
+            "ell_spmv_twolevel": "two-level A jacobi",
+            "contact_residual": "f64 (a)", "contact_tangent": "f32 (a)"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]

@@ -1,0 +1,178 @@
+"""tigar_tpu_torch's penalty self-contact (contact.py, ops/contact.py)
+against tigar_tpu on the CPU, mirroring tests/test_contact.py:1-80 and
+:203.
+
+The same inputs (numpy, seeded) go through both packages: the contact
+state each package builds itself and, through convert.py, the JAX
+package's state handed to the port.  On CPU tensors the port runs the
+plain versions of K13/K14 (torch.func derivatives of the row-blocked pair
+energy); the kernels themselves are held to them on the card
+(tests/test_torch_kernels_cuda.py).  The Newton solves with contact are
+tests/test_torch_contact_newton.py, the reef-knot demo's step
+tests/test_torch_reef_knot.py.
+
+Tolerances: index arrays and the mask equal, floats 1e-14 (the same host
+numpy); residual, tangent action and energy 1e-12 in float64 and 1e-5 in
+float32 (every array cast, as the demo's ``contact32``), relative to the
+largest entry.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tigar_tpu.contact import PointContact as JContact
+
+from tigar_tpu_torch import convert
+from tigar_tpu_torch.contact import PointContact
+from tigar_tpu_torch.ops import contact as ops_contact
+
+from torch_parity import contact_strip, jax_f32, rel
+
+F32 = torch.float32
+ARRAYS = ("conn", "vals", "X", "w_ctrl", "quad_w", "pair_mask")
+
+
+# -- the contact itself ------------------------------------------------------
+
+ACTIVE = dict(k=1e4, r_max=0.3, r_self=0.05)     # tests/test_contact.py:29
+
+
+@pytest.fixture(scope="module")
+def active():
+    """Both packages' contact on the strip at the active parameters, the
+    port's copy of the JAX state, and U = 0.01 N(0, 1), W ~ N(0, 1) from
+    numpy seed 0."""
+    js, ts = contact_strip("jax"), contact_strip("torch")
+    jc, tc = JContact(js, **ACTIVE), PointContact(ts, **ACTIVE)
+    conv = convert.point_contact_from_numpy(
+        convert.point_contact_arrays(jc, k=ACTIVE["k"]), ts, "cpu")
+    rng = np.random.default_rng(0)
+    U = rng.normal(size=js.ndof) * 0.01
+    W = rng.normal(size=js.ndof)
+    return dict(js=js, ts=ts, jc=jc, tc=tc, conv=conv, U=U, W=W)
+
+
+@pytest.mark.parametrize("name", ARRAYS)
+def test_contact_setup_matches_jax(active, name):
+    a = np.asarray(getattr(active["jc"], name))
+    b = getattr(active["tc"], name).numpy()
+    assert a.shape == b.shape
+    if name in ("conn", "pair_mask"):
+        assert np.array_equal(a, b)
+    else:
+        assert np.max(np.abs(a - b)) <= 1e-14 * max(1.0, np.max(np.abs(a)))
+    if name == "pair_mask":
+        assert np.array_equal(b, b.T)          # the kernels rely on it
+        assert not b.diagonal().any()
+
+
+def _eval(pkg, c, what, U, W, dtype):
+    if pkg == "jax":
+        U, W = jnp.asarray(U, dtype=dtype), jnp.asarray(W, dtype=dtype)
+    else:
+        U, W = torch.as_tensor(U).to(dtype), torch.as_tensor(W).to(dtype)
+    if what == "residual":
+        return c.residual(U)
+    if what == "tangent":
+        return c.tangent_action(U, W)
+    e = c.energy(U)
+    return e.reshape(1) if pkg == "torch" else np.atleast_1d(np.asarray(e))
+
+
+@pytest.mark.parametrize("source", ["own", "converted"])
+@pytest.mark.parametrize("what", ["residual", "tangent", "energy"])
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_contact_matches_jax(active, source, what, dtype):
+    """The port's residual, tangent action and energy against JAX's jitted
+    grad / jvp and energy, at test_contact.py's active state."""
+    jc = active["jc"] if dtype == "f64" else jax_f32(active["jc"])
+    tc = active["tc" if source == "own" else "conv"]
+    jdt, tdt, tol = ((jnp.float64, torch.float64, 1e-12) if dtype == "f64"
+                     else (jnp.float32, F32, 1e-5))
+    if dtype == "f32":
+        tc = tc.astype(F32)
+    yj = _eval("jax", jc, what, active["U"], active["W"], jdt)
+    yt = _eval("torch", tc, what, active["U"], active["W"], tdt)
+    assert yt.dtype == tdt
+    assert float(np.max(np.abs(np.asarray(yj)))) > 0.0
+    assert rel(yt, yj) <= tol
+
+
+def test_contact_force_fd_and_closed_form(active):
+    """tests/test_contact.py:26-77 on the port: the residual against a
+    central difference of the energy, and one point's gradient against
+    the closed-form pair force sum_j C phi'(r) rhat."""
+    tc, ts = active["tc"], active["ts"]
+    rng = np.random.default_rng(0)
+    U = torch.as_tensor(rng.normal(size=ts.ndof) * 0.01)
+    r = tc.residual(U)
+    v = torch.as_tensor(rng.normal(size=ts.ndof))
+    h = 1e-6
+    fd = (float(tc.energy(U + h * v)) - float(tc.energy(U - h * v))) / (2 * h)
+    assert np.isclose(float(torch.dot(r, v)), fd, rtol=1e-6)
+
+    x = tc.positions(U).numpy()
+    Cw, M = tc.quad_w.numpy(), tc.pair_mask.numpy()
+    k, r_max = ACTIVE["k"], ACTIVE["r_max"]
+    d = np.linalg.norm(x[:, None] - x[None, :], axis=-1)
+    ii, _ = np.where(M & (d < r_max) & (d > 1e-6))
+    assert len(ii) > 0
+    i = int(ii[0])
+    g = ops_contact.contact_forces_ref(torch.as_tensor(x), tc.quad_w,
+                                       tc.pair_mask, tc.phi, r_max).numpy()
+    expected = np.zeros(3)
+    for j in range(len(x)):
+        if M[i, j] and d[i, j] < r_max:
+            rhat = (x[j] - x[i]) / d[i, j]
+            expected -= Cw[i] * Cw[j] * (-k * (r_max - d[i, j])) * rhat
+    assert np.allclose(g[i], expected, rtol=1e-10)
+
+
+def test_contact_inactive_when_far():
+    """tests/test_contact.py:78."""
+    ts = contact_strip("torch")
+    c = PointContact(ts, k=1e4, r_max=0.01, r_self=0.02)
+    U = torch.zeros(ts.ndof, dtype=torch.float64)
+    assert float(c.energy(U)) == 0.0
+    assert float(c.residual(U).abs().max()) == 0.0
+    assert float(c.tangent_action(U, U + 1.0).abs().max()) == 0.0
+
+
+@pytest.fixture(scope="module")
+def chunked():
+    """tests/test_contact.py:203: nel=8 (n=100), reference distances in
+    (r_self, r_max) active at U=0, row_chunk 7 (not a divisor of n)."""
+    ts, js = contact_strip("torch", nel=8), contact_strip("jax", nel=8)
+    kw = dict(k=1e5, r_max=0.18, r_self=0.1)
+    rng = np.random.default_rng(5)
+    U, W = rng.normal(size=ts.ndof) * 0.05, rng.normal(size=ts.ndof)
+    return (PointContact(ts, **kw), PointContact(ts, row_chunk=7, **kw),
+            JContact(js, **kw), U, W)
+
+
+@pytest.mark.parametrize("what", ["energy", "residual", "tangent"])
+def test_row_chunked_contact_matches_unchunked(chunked, what):
+    full, chunk, jc, U, W = chunked
+    a = _eval("torch", full, what, U, W, torch.float64)
+    b = _eval("torch", chunk, what, U, W, torch.float64)
+    assert float(a.abs().max()) > 0.0
+    assert rel(b, a) <= 1e-12
+    assert rel(b, _eval("jax", jc, what, U, W, jnp.float64)) <= 1e-12
+
+
+def test_custom_potential_runs_the_plain_version_on_cpu(active):
+    """A custom phi (here the default formula written out) runs the plain
+    versions on CPU tensors and gives the default potential's results."""
+    k, r_max = ACTIVE["k"], ACTIVE["r_max"]
+
+    def phi(r):
+        return torch.where(r < r_max, 0.5 * k * (r_max - r) ** 2,
+                           torch.zeros_like(r))
+
+    c = PointContact(active["ts"], phi=phi, **ACTIVE)
+    U, W = torch.as_tensor(active["U"]), torch.as_tensor(active["W"])
+    assert rel(c.residual(U), active["tc"].residual(U)) <= 1e-14
+    assert rel(c.tangent_action(U, W),
+               active["tc"].tangent_action(U, W)) <= 1e-14

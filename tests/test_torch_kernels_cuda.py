@@ -5,7 +5,9 @@ element range and K5-K9 on the small two-patch plate and the three-patch
 L of the CPU tests; K2's element mode, K10 and K11, and the SANewton path
 through them, on the nel=8 plate; K12 on small 2D/3D Poisson splines and
 the two-level SA cycle through K11, with the generic form path's
-refinement and sa_cg solves through them).  Every test skips without a CUDA
+refinement and sa_cg solves through them; K13/K14 on contact strips of
+36, 1,024 and 1,089 points, and the reef-knot demo's step at NEL=6
+through them).  Every test skips without a CUDA
 device; run them on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -15,7 +17,8 @@ Tolerances (relative to the largest entry of the twin's result): f64
 nondeterministic order, and the stencil entries sum 4-36 element
 contributions of mixed sign); 1e-6 on the f32 interface block apply (no
 atomics, one dot product of m terms per row); K12 (f32 only) 1e-5, and
-2e-6 against the f64 AD tangent action (tests/test_fastpath.py).
+2e-6 against the f64 AD tangent action (tests/test_fastpath.py); K13/K14
+f64 1e-12, f32 1e-5 (no atomics: each row is one warp's sum).
 """
 
 import numpy as np
@@ -452,6 +455,18 @@ def test_nitsche_kernels_refuse_other_densities(cuda):
         _nitsche(sp, 4).residual(U.float())
 
 
+def test_nitsche_tangent_refuses_another_levels_positions(cuda):
+    """K9 given the support positions of another interface raises in the
+    wrapper (the binding's own shape check ended the process instead)."""
+    (sp, _), (sc, _) = _two_patch(cuda, (8, 8, 12)), _two_patch(cuda)
+    fine, coarse = _nitsche(sp, 8), _nitsche(sc, 4)
+    idx, pa, pb = fine.support_positions()
+    _, pa_c, pb_c = coarse.support_positions()
+    U = torch.zeros(sp.ndof, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="positions"):
+        fine.tangent_block_cuda(U[idx.long()], pa_c, pb_c, fine.params)
+
+
 # -- K2's element mode, K10 and K11: the space-agnostic Newton tier --------
 
 
@@ -732,3 +747,89 @@ def test_generic_path_runs_through_kernels(cuda, method):
         out[str(dev)] = x.cpu()
     assert float((out[str(cuda)] - out["cpu"]).abs().max()) <= \
         1e-10 * float(out["cpu"].abs().max())
+
+
+# -- K13 / K14: all-pairs penalty contact (the reef-knot demo's contact) ----
+
+
+def _contact(nel, device, **kw):
+    """PointContact on the unit-square strip of tests/test_contact.py at
+    nel^2 elements ((nel+2)^2 points), at its active parameters."""
+    from tigar_tpu_torch.contact import PointContact
+    cm = ExplicitBSplineControlMesh(
+        [2, 2], [uniform_knots(2, 0.0, 1.0, nel)] * 2, extra_dim=1)
+    sp = ExtractedSpline(EqualOrderSpline(3, cm), quad_degree=4, nders=2,
+                         device=device)
+    return PointContact(sp, **(kw or dict(k=1e4, r_max=0.3, r_self=0.05)))
+
+
+# n = 36 and 1,089 are ragged against the 16-byte mask loads and the 32
+# lanes; n = 1,024 is a whole number of warps' tiles
+@pytest.mark.parametrize("nel", [4, 30, 31])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_contact_kernels_match_plain(cuda, nel, dtype):
+    """K13 and K14 against their plain versions (torch.func of the
+    row-blocked energy) at U = 0.01 N(0, 1) from numpy seed 0; f64 1e-12,
+    f32 1e-5 of the largest entry."""
+    from tigar_tpu_torch.ops import contact as oc
+    c = _contact(nel, cuda)
+    c = c if dtype == torch.float64 else c.astype(dtype)
+    ndof = c.spline.ndof
+    rng = np.random.default_rng(0)
+    U = torch.as_tensor(rng.normal(size=ndof) * 0.01, device=cuda).to(dtype)
+    W = torch.as_tensor(rng.normal(size=ndof), device=cuda).to(dtype)
+    x = c.positions(U).contiguous()
+    v = c._apply_P(W).contiguous()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    cuda_ext.reset_counts()
+    gk = oc.contact_forces(x, c.quad_w, c.pair_mask, c.k, c.r_max)
+    hk = oc.contact_hvp(x, v, c.quad_w, c.pair_mask, c.k, c.r_max)
+    torch.cuda.synchronize()
+    counts = cuda_ext.counts()
+    assert counts["contact_residual"] == 1 == counts["contact_tangent"]
+    gp = oc.contact_forces_ref(x, c.quad_w, c.pair_mask, c.phi, c.r_max)
+    hp = oc.contact_hvp_ref(x, v, c.quad_w, c.pair_mask, c.phi, c.r_max)
+    assert float(gp.abs().max()) > 0.0
+    assert float((gk - gp).abs().max()) <= tol * float(gp.abs().max())
+    assert float((hk - hp).abs().max()) <= tol * float(hp.abs().max())
+    # the DoF-space residual and tangent action through the kernels
+    assert float((c.residual(U).cpu() - c._apply_PT(gp).cpu()).abs().max()) \
+        <= tol * float(c._apply_PT(gp).abs().max())
+
+
+def test_contact_kernels_refuse_what_they_cannot_take(cuda):
+    """A custom potential, an unpadded mask and a wrong type raise."""
+    from tigar_tpu_torch.contact import PointContact
+    from tigar_tpu_torch.ops import contact as oc
+    c = _contact(4, cuda)
+    U = torch.zeros(c.spline.ndof, dtype=torch.float64, device=cuda)
+    custom = PointContact(c.spline, k=1e4, r_max=0.3, r_self=0.05,
+                          phi=c.phi)
+    with pytest.raises(NotImplementedError):
+        custom.residual(U)
+    with pytest.raises(NotImplementedError):
+        custom.tangent_action(U, U)
+    x = c.positions(U).contiguous()
+    with pytest.raises(ValueError):
+        oc.contact_forces(x, c.quad_w, c.pair_mask.contiguous(), c.k,
+                          c.r_max)
+    with pytest.raises(ValueError):
+        oc.contact_forces(x.float(), c.quad_w, c.pair_mask, c.k, c.r_max)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_reef_knot_step_runs_through_kernels(cuda, mixed):
+    """One step of the reef-knot demo at NEL=6 without MG on the card:
+    K13 and K14 launched, the Newton count of the CPU plain versions and
+    U within 1e-10 (f64 CG) or 1e-5 (f32 CG: atomics in the shell
+    scatter)."""
+    from tigar_tpu_torch.demos.reef_knot_contact import run
+    cuda_ext.reset_counts()
+    Ug, hg, _ = run(6, 1, mixed=mixed, mg=False, cg_iters=10, device=cuda)
+    counts = cuda_ext.counts()
+    assert counts["contact_residual"] == len(hg[0])
+    assert counts["contact_tangent"] > 0
+    Uc, hc, _ = run(6, 1, mixed=mixed, mg=False, cg_iters=10, device="cpu")
+    assert len(hg[0]) == len(hc[0])
+    tol = 1e-5 if mixed else 1e-10
+    assert float((Ug.cpu() - Uc).abs().max()) <= tol * float(Uc.abs().max())

@@ -270,3 +270,42 @@ def scalar_forms(pkg):
         return 0.5 * xp.sum(ctx.grad(u) ** 2) + xp.cos(u.val) * ctx.x[1]
 
     return dict(soln=soln, a=a, L=L, res=res, energy=energy)
+
+
+def contact_strip(pkg, nel=4, clamp=False):
+    """tests/test_contact.py's flat strip (p=2 on the unit square, three
+    fields), optionally clamped on every side (one layer)."""
+    if pkg == "jax":
+        from tigar_tpu.ops.knots import uniform_knots
+        from tigar_tpu.models.bspline import ExplicitBSplineControlMesh
+        from tigar_tpu.models.space import EqualOrderSpline
+        from tigar_tpu.models.extracted import ExtractedSpline
+        kw = {}
+    else:
+        from tigar_tpu_torch.ops.knots import uniform_knots
+        from tigar_tpu_torch.models.bspline import ExplicitBSplineControlMesh
+        from tigar_tpu_torch.models.space import EqualOrderSpline
+        from tigar_tpu_torch.models.extracted import ExtractedSpline
+        kw = {"device": "cpu"}
+    cm = ExplicitBSplineControlMesh(
+        [2, 2], [uniform_knots(2, 0.0, 1.0, nel)] * 2, extra_dim=1)
+    sp = EqualOrderSpline(3, cm)
+    if clamp:
+        basis = cm.scalar_basis()
+        for d in (0, 1):
+            for s in (0, 1):
+                dofs = basis.side_dofs(d, s, n_layers=1)
+                for i in range(3):
+                    sp.add_zero_dofs(i, dofs)
+    return ExtractedSpline(sp, quad_degree=4, nders=2, **kw)
+
+
+def jax_f32(t):
+    """The JAX pytree ``t`` with every floating array cast to float32 (the
+    demos' f32 copies of assemblers and contacts)."""
+    import jax.numpy as jnp
+    import jax.tree_util as jtu
+    return jtu.tree_map(
+        lambda x: x.astype(jnp.float32)
+        if hasattr(x, "dtype") and jnp.issubdtype(x.dtype, jnp.floating)
+        else x, t)

@@ -18,6 +18,10 @@ TORCH_INDEX_TYPE = torch.int32
 # Default real dtype for assembly and solves.
 DEFAULT_REAL_TYPE = torch.float64
 
+# Default Newton solver parameters (as tigar_tpu/config.py).
+DEFAULT_MAX_ITERS = 20
+DEFAULT_RELATIVE_TOLERANCE = 1e-5
+
 # Tolerance used when comparing knots for equality (see tigar_tpu.config).
 KNOT_NEAR_EPS = 100.0 * np.finfo(np.float64).eps
 

@@ -18,8 +18,10 @@ and ``interface_arrays``/``interface_from_numpy`` an interface form (both
 sides' SideData, wq, nu, w_param, surfJ, params), ``mlsa_arrays``/
 ``mlsa_from_numpy`` a smoothed-aggregation hierarchy,
 ``twolevel_sa_arrays``/``twolevel_sa_from_numpy`` a two-level one,
-``elem_tangent_from_numpy`` an element-batch tangent and
-``laplace_layouts_from_numpy`` the layouts of the f32 fast-path apply.
+``elem_tangent_from_numpy`` an element-batch tangent,
+``laplace_layouts_from_numpy`` the layouts of the f32 fast-path apply and
+``point_contact_arrays``/``point_contact_from_numpy`` the state of a
+penalty contact (points, evaluation rows, weights, pair mask).
 Tests use them to feed
 identical inputs to the JAX functions and to this package's kernels and
 twins, independent of either package's own preprocessing.
@@ -290,3 +292,38 @@ def twolevel_sa_from_numpy(arrays, device="cuda"):
                       t("P", torch.float32), t("Ac_inv", torch.float32),
                       omega=arrays["omega"], n_smooth=arrays["n_smooth"],
                       ndof=arrays["ndof"])
+
+
+_CONTACT = ("conn", "vals", "X", "w_ctrl", "quad_w", "pair_mask")
+
+
+def point_contact_arrays(contact, k=None):
+    """numpy arrays of a PointContact (this package's or tigar_tpu's):
+    conn, vals, X, w_ctrl, quad_w, pair_mask, and k / r_max / r_self /
+    row_chunk.  ``k``: the penalty of a contact that does not keep it
+    (tigar_tpu's keeps only its potential)."""
+    out = {name: _np(getattr(contact, name)) for name in _CONTACT}
+    out.update(k=float(contact.k if k is None else k),
+               r_max=float(contact.r_max), r_self=float(contact.r_self),
+               row_chunk=contact.row_chunk)
+    return out
+
+
+def point_contact_from_numpy(arrays, spline, device="cuda",
+                             dtype=torch.float64):
+    """This package's PointContact on ``spline`` (the port's spline of the
+    same space) from ``point_contact_arrays`` output, with the default
+    potential."""
+    from .contact import PointContact, pair_penalty_energy
+    device = resolve_device(device)
+    obj = PointContact.__new__(PointContact)
+    obj.spline = spline
+    obj.k, obj.r_max, obj.r_self = (float(arrays[k])
+                                    for k in ("k", "r_max", "r_self"))
+    obj.custom_phi = None
+    obj.phi = pair_penalty_energy(obj.k, obj.r_max)
+    obj.nsd = spline.space.nsd
+    obj._set_arrays(arrays["conn"], arrays["vals"], arrays["X"],
+                    arrays["w_ctrl"], arrays["quad_w"], arrays["pair_mask"],
+                    device, dtype, arrays["row_chunk"])
+    return obj

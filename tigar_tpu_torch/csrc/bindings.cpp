@@ -313,6 +313,65 @@ torch::Tensor laplace_apply(torch::Tensor A1, torch::Tensor A2,
   return r;
 }
 
+// K13 / K14 over the bool pair mask held with a padded row stride
+torch::Tensor contact_pairs(const torch::Tensor& mask, const torch::Tensor& x,
+                            const std::optional<torch::Tensor>& v,
+                            const torch::Tensor& w, double k, double r_max,
+                            const char* name) {
+  const auto dt = x.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(x.dim() == 2 && x.size(1) == 3, name, ": x must be [n, 3]");
+  const int64_t n = x.size(0);
+  TORCH_CHECK(n < (int64_t(1) << 31), name, ": too many points");
+  check(x, "x", dt, {n, 3});
+  check(w, "w", dt, {n});
+  if (v) check(*v, "v", dt, {n, 3});
+  TORCH_CHECK(mask.is_cuda() && mask.scalar_type() == torch::kBool,
+              name, ": the pair mask must be a bool CUDA tensor");
+  TORCH_CHECK(mask.dim() == 2 && mask.size(0) == n && mask.size(1) == n,
+              name, ": the pair mask must be [n, n]");
+  const int64_t ld = mask.stride(0);
+  TORCH_CHECK(mask.stride(1) == 1 && ld >= n && ld % 16 == 0 &&
+                  mask.storage_offset() == 0 &&
+                  reinterpret_cast<uintptr_t>(mask.data_ptr()) % 16 == 0 &&
+                  mask.storage().nbytes() >= (size_t)(n * ld),
+              name, ": the pair mask must be the [n, n] view of a zero-"
+              "padded [n, ld] bool buffer with ld a multiple of 16");
+  TORCH_CHECK(mask.device() == x.device() && w.device() == x.device() &&
+                  (!v || v->device() == x.device()),
+              name, ": tensors on different devices");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto out = torch::empty_like(x);
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  const auto* mp = static_cast<const unsigned char*>(mask.data_ptr());
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    err = tigar::contact_pairs_launch<T>((int)n, ld, mp, ptr<T>(x),
+                                         v ? ptr<T>(*v) : nullptr, ptr<T>(w),
+                                         k, r_max, out.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    err = tigar::contact_pairs_launch<T>((int)n, ld, mp, ptr<T>(x),
+                                         v ? ptr<T>(*v) : nullptr, ptr<T>(w),
+                                         k, r_max, out.data_ptr<T>(), stream);
+  }
+  check_launch(err, name);
+  return out;
+}
+
+torch::Tensor contact_residual(torch::Tensor mask, torch::Tensor x,
+                               torch::Tensor w, double k, double r_max) {
+  return contact_pairs(mask, x, std::nullopt, w, k, r_max,
+                       "contact_residual");
+}
+
+torch::Tensor contact_tangent(torch::Tensor mask, torch::Tensor x,
+                              torch::Tensor v, torch::Tensor w, double k,
+                              double r_max) {
+  return contact_pairs(mask, x, v, w, k, r_max, "contact_tangent");
+}
+
 torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,
                             std::optional<torch::Tensor> mask,
                             std::optional<torch::Tensor> b,
@@ -632,13 +691,13 @@ torch::Tensor nitsche_iface_residual(std::vector<torch::Tensor> side_a,
   if (dt == torch::kFloat) {
     using T = float;
     err = tigar::nitsche_iface_residual_launch<T>(
-        (int)nq, (int)U.size(0), nitsche_side<T>(side_a, dt, nq, nullptr),
+        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
         nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
         ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
   } else {
     using T = double;
     err = tigar::nitsche_iface_residual_launch<T>(
-        (int)nq, (int)U.size(0), nitsche_side<T>(side_a, dt, nq, nullptr),
+        (int)nq, nitsche_side<T>(side_a, dt, nq, nullptr),
         nitsche_side<T>(side_b, dt, nq, nullptr), ptr<T>(wq), ptr<T>(surfJ),
         ptr<T>(U), consts.data(), r.data_ptr<T>(), stream);
   }
@@ -719,6 +778,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ell_spmv", &ell_spmv, "K11: ELL product / residual / Jacobi");
   m.def("laplace_apply", &laplace_apply,
         "K12: f32 scalar stiffness apply over explicit connectivity");
+  m.def("contact_residual", &contact_residual,
+        "K13: all-pairs penalty contact forces");
+  m.def("contact_tangent", &contact_tangent,
+        "K14: all-pairs penalty contact tangent action");
   m.def("stencil_apply", &stencil_apply,
         "K3: stencil apply / residual / Jacobi sweep");
 }

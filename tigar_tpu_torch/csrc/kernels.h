@@ -134,7 +134,7 @@ struct NitscheSide {
 // zero-initialised, U and r of ndof entries).  consts = {beta_d, beta_r,
 // w_a, w_b, lam_ps, 2 mu, h, h^3/12}.
 template <typename T>
-cudaError_t nitsche_iface_residual_launch(int nq, int ndof, NitscheSide<T> sa,
+cudaError_t nitsche_iface_residual_launch(int nq, NitscheSide<T> sa,
                                           NitscheSide<T> sb, const T* wq,
                                           const T* surfJ, const T* U,
                                           const double* consts, T* r,
@@ -179,5 +179,16 @@ cudaError_t laplace_apply_launch(int nel, int nen, int M, int ndof,
                                  const int* connT, const float* mask,
                                  const float* W, float* r,
                                  cudaStream_t stream);
+
+// K13 (v == nullptr) / K14: all-pairs penalty contact over n points x
+// [n][3] with weights w [n] and the bool mask [n][ld] (ld a multiple of 16,
+// columns n..ld-1 zero, 16-byte aligned): K13 writes the pair forces
+// out_i = k w_i sum_j live w_j (1 - r_max/r) d, K14 their tangent action
+// on the perturbations v [n][3]; every row written once.
+template <typename T>
+cudaError_t contact_pairs_launch(int n, long long ld,
+                                 const unsigned char* mask, const T* x,
+                                 const T* v, const T* w, double k,
+                                 double r_max, T* out, cudaStream_t stream);
 
 }  // namespace tigar

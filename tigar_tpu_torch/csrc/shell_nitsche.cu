@@ -48,27 +48,9 @@
 // bytes bind (K is 22.6 / 45.2 MB in f32 / f64 at the 768 fine points).
 // These passes do 5.4e5 and 2.4e7 a point, 31x and 38x that need; a
 // reverse sweep over the flux is the way down.
-//
-// Built with -DTIGAR_BOUNDS_CHECK (cuda_ext.load with TIGAR_BOUNDS_CHECK=1
-// in the environment), device-side checks (print, then trap) test every
-// support position or DoF index a point loads against the length of x,
-// and every index into the staged PointData and the tangent block.
+
 #include "kernels.h"
 #include "shell_nitsche.cuh"
-
-#ifdef TIGAR_BOUNDS_CHECK
-#include <cstdio>
-#define TIGAR_ASSERT(c)                                                   \
-  do {                                                                    \
-    if (!(c)) {                                                           \
-      printf("TIGAR_ASSERT failed: %s (%s:%d) block %d thread %d\n", #c, \
-             __FILE__, __LINE__, (int)blockIdx.x, (int)threadIdx.x);      \
-      __trap();                                                           \
-    }                                                                     \
-  } while (0)
-#else
-#define TIGAR_ASSERT(c)
-#endif
 
 namespace tigar {
 
@@ -112,13 +94,12 @@ NitscheConstS<S> nitsche_consts(const double* c) {
 // any block size is correct.
 template <typename S>
 __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
-                           int n, PointData<S>& P) {
+                           PointData<S>& P) {
   for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
     const int s = t / 27;
     const size_t row = (size_t)q * 27 + t % 27;
     const NitscheSide<S>& sd = sides[s];
     P.col[t] = sd.cols[row];
-    TIGAR_ASSERT(P.col[t] >= 0 && P.col[t] < n);
     P.coef[t] = x[P.col[t]];
     P.rows[t][0] = sd.R0[row];
 #pragma unroll
@@ -168,7 +149,6 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
     S acc = S(0);
     for (int a = 0; a < 9; ++a) {
       const int i = s * 27 + f * 9 + a;
-      TIGAR_ASSERT(i < NCOEF && off < NROW);
       acc += P.rows[i][off] * P.coef[i];
     }
     *dst = acc;
@@ -212,7 +192,7 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
 
 template <typename S>
 __global__ void __launch_bounds__(64)
-nitsche_residual_kernel(int ndof, NitscheSide<S> sa, NitscheSide<S> sb,
+nitsche_residual_kernel(NitscheSide<S> sa, NitscheSide<S> sb,
                         const S* __restrict__ wq, const S* __restrict__ surfJ,
                         const S* __restrict__ U, NitscheConstS<S> c,
                         S* __restrict__ r) {
@@ -221,7 +201,7 @@ nitsche_residual_kernel(int ndof, NitscheSide<S> sa, NitscheSide<S> sb,
   __shared__ S flux[2][9];
   const int q = blockIdx.x;
   const NitscheSide<S> sides[2] = {sa, sb};
-  load_point(q, sides, U, ndof, P);
+  load_point(q, sides, U, P);
   for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
     const int s = t / 27, f = (t % 27) / 9;
     ZJets<Dual<S, 1>> J;
@@ -281,7 +261,7 @@ nitsche_tangent_kernel(int m, NitscheSide<S> sa, NitscheSide<S> sb,
   __shared__ S Hs[2][27][27];
   const int q = blockIdx.x;
   const NitscheSide<S> sides[2] = {sa, sb};
-  load_point(q, sides, u_sub, m, P);
+  load_point(q, sides, u_sub, P);
   // dF_s/dz_i for every coefficient
   for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
     const int s = t / 27, f = (t % 27) / 9;
@@ -305,7 +285,6 @@ nitsche_tangent_kernel(int m, NitscheSide<S> sa, NitscheSide<S> sb,
       ++k;
     }
     const int l = k + rem;
-    TIGAR_ASSERT(k < 27 && l >= k && l < 27);
     ZJets<Dual<Dual<S, 1>, 1>> J;
     seed2(P.side[s], k / 9, P.rows[s * 27 + k], l / 9, P.rows[s * 27 + l], J);
     Dual<Dual<S, 1>, 1> Tm[3], Anu[3][2];
@@ -346,8 +325,6 @@ nitsche_tangent_kernel(int m, NitscheSide<S> sa, NitscheSide<S> sb,
                         c.beta_r * (P.phi[i][0] * P.phi[j][0] +
                                     P.phi[i][1] * P.phi[j][1] +
                                     P.phi[i][2] * P.phi[j][2]));
-    TIGAR_ASSERT(P.col[i] >= 0 && P.col[i] < m && P.col[j] >= 0 &&
-                 P.col[j] < m);
     atomicAdd(K + (size_t)P.col[i] * m + P.col[j], w * (stab - pair * isj));
   }
 }
@@ -355,15 +332,14 @@ nitsche_tangent_kernel(int m, NitscheSide<S> sa, NitscheSide<S> sb,
 }  // namespace
 
 template <typename T>
-cudaError_t nitsche_iface_residual_launch(int nq, int ndof,
-                                          NitscheSide<T> sa,
+cudaError_t nitsche_iface_residual_launch(int nq, NitscheSide<T> sa,
                                           NitscheSide<T> sb, const T* wq,
                                           const T* surfJ, const T* U,
                                           const double* consts, T* r,
                                           cudaStream_t stream) {
   if (nq == 0) return cudaSuccess;
   nitsche_residual_kernel<T><<<nq, 64, 0, stream>>>(
-      ndof, sa, sb, wq, surfJ, U, nitsche_consts<T>(consts), r);
+      sa, sb, wq, surfJ, U, nitsche_consts<T>(consts), r);
   return cudaGetLastError();
 }
 
@@ -380,10 +356,10 @@ cudaError_t nitsche_iface_tangent_launch(int nq, int m, NitscheSide<T> sa,
 }
 
 template cudaError_t nitsche_iface_residual_launch<float>(
-    int, int, NitscheSide<float>, NitscheSide<float>, const float*,
-    const float*, const float*, const double*, float*, cudaStream_t);
+    int, NitscheSide<float>, NitscheSide<float>, const float*, const float*,
+    const float*, const double*, float*, cudaStream_t);
 template cudaError_t nitsche_iface_residual_launch<double>(
-    int, int, NitscheSide<double>, NitscheSide<double>, const double*,
+    int, NitscheSide<double>, NitscheSide<double>, const double*,
     const double*, const double*, const double*, double*, cudaStream_t);
 template cudaError_t nitsche_iface_tangent_launch<float>(
     int, int, NitscheSide<float>, NitscheSide<float>, const float*,

@@ -879,6 +879,12 @@ class EnergyNitscheCoupling(InterfaceForm):
         if u_sub.shape != (len(self.support),):
             raise ValueError(f"u_sub shape {tuple(u_sub.shape)}, support "
                              f"{len(self.support)}")
+        nq = self.wq.numel()
+        for name, pos in (("pos_a", pos_a), ("pos_b", pos_b)):
+            if tuple(pos.shape) != (nq, 3, 9):
+                raise ValueError(f"{name} shape {tuple(pos.shape)}, expected "
+                                 f"({nq}, 3, 9): another interface's "
+                                 f"positions?")
         K = cuda_ext.load().nitsche_iface_tangent(
             sa, sb, pos_a.contiguous(), pos_b.contiguous(),
             self.wq.contiguous(), self.surfJ.contiguous(),

@@ -1,7 +1,7 @@
 """ExtractedSpline: the analysis object (port of
 tigar_tpu/models/extracted.py: construction, the volume assemblers, the
-generic form path with its linear solvers, geometry evaluation and the L2
-error norm).
+generic form path with its linear solvers, the nonlinear (Newton) solve,
+projections, geometry evaluation and the L2 error norm).
 
 Construction tabulates the field bases and the control basis on the shared
 Bezier-element grid (host numpy), evaluates the geometry at all quadrature
@@ -27,8 +27,12 @@ Linear solvers (``set_solver_options(linear_solver=...)``; by default
 in f64 on the device), "cg" / "bicgstab" (Jacobi-preconditioned, the f64
 AD tangent action, residual read on the host every 25 iterations),
 "sparse_cg" / "sparse_bicgstab" (the assembled tangent as a torch sparse
-CSR matrix) and "sa_cg" (CG on that matrix, preconditioned by
-smoothed aggregation: TwoLevelSA, or MultilevelSA for sa_levels > 2).
+CSR matrix), "mg_cg" (CG of the AD tangent action, preconditioned by a
+geometric V-cycle over ``[self] + mg_levels``, optionally in ``mg_dtype``)
+and "sa_cg" (CG on the sparse matrix, preconditioned by smoothed
+aggregation: TwoLevelSA, or MultilevelSA for sa_levels > 2).
+``solve_nonlinear_variational_problem`` runs solvers/newton.newton_solve
+with these linear solves (``max_iters``, ``relative_tolerance``).
 """
 
 from __future__ import annotations
@@ -36,13 +40,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_REAL_TYPE, resolve_device
+from ..config import (DEFAULT_MAX_ITERS, DEFAULT_REAL_TYPE,
+                      DEFAULT_RELATIVE_TOLERANCE, resolve_device)
 from ..forms import tree_jvp
 from ..ops.quadrature import npoints_for_degree
 from ..ops.geometry import precompute_geometry
 from ..ops.assembly import DomainAssembler, apply_bc_matrix, scatter_bcoo
 from ..solvers.linear import (KRYLOV_STEPS, jacobi_preconditioner,
                               solve_dense, solve_krylov)
+from ..solvers.newton import newton_solve
 
 DEFAULT_DENSE_THRESHOLD = 4096
 
@@ -81,6 +87,13 @@ def _set_unknown(U, arr):
         out["u"] = arr
         return out
     return arr
+
+
+def _cast_tree(tree, dtype):
+    """``tree`` with every floating tensor leaf cast to ``dtype``."""
+    return torch.utils._pytree.tree_map(
+        lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+        and x.is_floating_point() else x, tree)
 
 
 def _params_key(params):
@@ -132,10 +145,17 @@ class ExtractedSpline:
                                     device=self.device)
 
         # solver options (set_solver_options)
+        self.max_iters = DEFAULT_MAX_ITERS
+        self.relative_tolerance = DEFAULT_RELATIVE_TOLERANCE
         self.linear_solver = None       # None = direct if small, else cg
         self.linear_tol = 1e-12
         self.linear_max_iter = None
         self.dense_threshold = DEFAULT_DENSE_THRESHOLD
+        self.mg_levels = None           # coarser splines for "mg_cg"
+        self.mg_smooth = 2
+        self.mg_omega = 0.7
+        self.mg_dtype = None            # the V-cycle's precision
+        self._mg_cache = {}
         self.sa_coarsen = 3.0
         self.sa_smooth = 2
         self.sa_omega_P = 0.66
@@ -144,6 +164,7 @@ class ExtractedSpline:
         self.sa_near_kernel = "linear"
         self.sa_cycle = "V"
         self._sa_cache = {}
+        self._cast_cache = {}           # (id, dtype) -> cast assembler/mask
         # what the last linear solve reported: method, and for the Krylov
         # methods the iterations and the final |r| / |b|
         self.last_linear_solve = {}
@@ -152,15 +173,35 @@ class ExtractedSpline:
 
     # -- options --------------------------------------------------------------
 
-    def set_solver_options(self, linear_solver=None, linear_tol=None,
+    def set_solver_options(self, max_iters=None, relative_tolerance=None,
+                           linear_solver=None, linear_tol=None,
                            linear_max_iter=None, dense_threshold=None,
-                           sa_coarsen=None, sa_smooth=None, sa_omega_P=None,
-                           sa_levels=None, sa_coarse_size=None,
-                           sa_near_kernel=None, sa_cycle=None):
-        """The linear-solver options of tigar_tpu's ``set_solver_options``;
-        a change of an SA option drops the cached SA preconditioners.  (The
-        Newton options wait for the nonlinear solve, the mg_* options for
-        the form-based multigrid.)"""
+                           mg_levels=None, mg_smooth=None, mg_omega=None,
+                           mg_dtype=None, sa_coarsen=None, sa_smooth=None,
+                           sa_omega_P=None, sa_levels=None,
+                           sa_coarse_size=None, sa_near_kernel=None,
+                           sa_cycle=None):
+        """The options of tigar_tpu's ``set_solver_options``: Newton's
+        ``max_iters`` and ``relative_tolerance``, the linear solver and its
+        tolerance, the mg_cg hierarchy (``mg_levels``: coarser
+        ExtractedSplines of the same problem with nested knots) and its
+        smoothing and precision, and the SA options.  A new ``mg_levels``
+        or ``mg_dtype`` drops the cached V-cycles, an SA option the cached
+        SA preconditioners."""
+        if max_iters is not None:
+            self.max_iters = max_iters
+        if relative_tolerance is not None:
+            self.relative_tolerance = relative_tolerance
+        if mg_levels is not None:
+            self.mg_levels = list(mg_levels)
+            self._mg_cache = {}
+        if mg_smooth is not None:
+            self.mg_smooth = int(mg_smooth)
+        if mg_omega is not None:
+            self.mg_omega = float(mg_omega)
+        if mg_dtype is not None:
+            self.mg_dtype = mg_dtype
+            self._mg_cache = {}
         if linear_solver is not None:
             self.linear_solver = linear_solver
         if linear_tol is not None:
@@ -308,11 +349,32 @@ class ExtractedSpline:
             return out
         return action
 
+    def _cast(self, key, obj, dtype):
+        """``obj`` (an assembler or the mask) cast to ``dtype``, cached per
+        (key, dtype): the mixed-precision paths reuse one copy."""
+        ckey = (key, dtype)
+        hit = self._cast_cache.get(ckey)
+        if hit is None:
+            hit = (obj.astype(dtype) if isinstance(obj, DomainAssembler)
+                   else obj.to(dtype), obj)   # keep the source (id key)
+            self._cast_cache[ckey] = hit
+        return hit[0]
+
     def tangent_action(self, form, U, W, apply_bcs=True, diag=1.0,
-                       params=None):
-        """Action of the tangent dR/d(unknown) at U on W (matrix-free)."""
+                       params=None, dtype=None):
+        """Action of the tangent dR/d(unknown) at U on W (matrix-free).
+        ``dtype`` is the compute precision (e.g. float32 V-cycles inside a
+        float64 CG: the ``mg_dtype`` option): the assemblers, U, W, the
+        mask and params are cast on the way in and the result stays in
+        that type."""
         _, _, pairs = self._form_key(form)
-        return self._action(pairs, U, self.mask, apply_bcs, diag, params)(W)
+        mask = self.mask
+        if dtype is not None and dtype != self.dtype:
+            pairs = [(self._cast(id(asm), asm, dtype), dens)
+                     for asm, dens in pairs]
+            mask = self._cast("mask", mask, dtype)
+            U, W, params = _cast_tree((U, W, params), dtype)
+        return self._action(pairs, U, mask, apply_bcs, diag, params)(W)
 
     def matrix_operator(self, form, U=None, apply_bcs=True, diag=1.0,
                         params=None):
@@ -415,6 +477,25 @@ class ExtractedSpline:
         self._sa_cache[(fkey, apply_bcs)] = (pkey, built)
         return built
 
+    def _mg_preconditioner(self, form, params):
+        """The V-cycle over ``[self] + mg_levels`` for ``form``, cached per
+        form and params values (its level operators are the tangents at
+        the zero state, exact for linear problems)."""
+        from ..solvers.multigrid import Multigrid
+        if not self.mg_levels:
+            raise ValueError('linear_solver="mg_cg" requires '
+                             "set_solver_options(mg_levels=[...])")
+        fkey, _, _ = self._form_key(form)
+        pkey = _params_key(params)
+        cached = self._mg_cache.get(fkey)
+        if cached is not None and cached[0] == pkey:
+            return cached[1]
+        mg = Multigrid([self] + self.mg_levels, form, params=params,
+                       n_smooth=self.mg_smooth, omega=self.mg_omega,
+                       dtype=self.mg_dtype)
+        self._mg_cache[fkey] = (pkey, mg)
+        return mg
+
     def _solve_linearized(self, form, U, rhs, params=None, apply_bcs=True):
         """Solve J(U) x = rhs with the configured linear solver; with
         ``apply_bcs`` the operator has unit diagonal rows at the
@@ -428,9 +509,20 @@ class ExtractedSpline:
             return solve_dense(A, rhs)
 
         if method == "mg_cg":
-            raise NotImplementedError(
-                'linear_solver="mg_cg" needs the form-based multigrid '
-                "(ROADMAP item A8), not ported yet")
+            mg = self._mg_preconditioner(form, params)
+            if self.mg_dtype is not None and self.mg_dtype != self.dtype:
+                # the reduced-precision V-cycle inside the f64 CG
+                mg_dt, out_dt = self.mg_dtype, self.dtype
+
+                def M(r):
+                    return mg(r.to(mg_dt)).to(out_dt)
+            else:
+                M = mg
+            action = self.matrix_operator(form, U=U, apply_bcs=apply_bcs,
+                                          params=params)
+            return solve_krylov(action, rhs, method="cg",
+                                tol=self.linear_tol,
+                                maxiter=self.linear_max_iter, M=M, info=info)
 
         if method == "sa_cg":
             pre, M_sp = self._sa_preconditioner(form, U, params, apply_bcs)
@@ -492,6 +584,65 @@ class ExtractedSpline:
         dU = self._solve_linearized(form, U0, r, params=params,
                                     apply_bcs=apply_bcs)
         return _get_unknown(U0) - dU
+
+    # -- nonlinear solve --------------------------------------------------------
+
+    def solve_nonlinear_variational_problem(self, form, U0=None,
+                                            reference_error=None, log=False,
+                                            params=None):
+        """Newton solve of the residual ``form`` (solvers/newton.py) with
+        the configured linear solver, ``max_iters`` and
+        ``relative_tolerance``.  U0 may be a vector or a dict with the
+        unknown under "u" (the other fields are held fixed); returns the
+        unknown."""
+        if U0 is None:
+            U0 = self._zeros()
+        Uaux = U0 if isinstance(U0, dict) else None
+
+        def state(u_arr):
+            return u_arr if Uaux is None else _set_unknown(Uaux, u_arr)
+
+        def residual(u_arr):
+            return self.assemble_vector(form, U=state(u_arr), params=params)
+
+        def solve_lin(u_arr, r):
+            return self._solve_linearized(form, state(u_arr), r,
+                                          params=params)
+
+        u0 = _get_unknown(U0).to(self.dtype)
+        u, _ = newton_solve(residual, solve_lin, u0,
+                            max_iters=self.max_iters,
+                            rtol=self.relative_tolerance,
+                            reference_error=reference_error, log=log)
+        return u
+
+    # -- projections ----------------------------------------------------------
+
+    def project(self, fn, rationalize=True, lump_mass=False, apply_bcs=False):
+        """L2 (or lumped) projection of a pointwise function ``fn(ctx)``
+        (scalar or [nfields]) onto the spline space; returns homogeneous
+        DoFs."""
+        def L(ctx, v):
+            vv = ctx.rationalize(v) if rationalize else v
+            return torch.sum(torch.as_tensor(fn(ctx)) * vv.val)
+
+        b = self.assemble_vector(L, apply_bcs=apply_bcs)
+        if lump_mass:
+            def Lones(ctx, v):
+                vv = ctx.rationalize(v) if rationalize else v
+                return torch.sum(torch.atleast_1d(vv.val))
+            return b / self.assemble_vector(Lones, apply_bcs=apply_bcs)
+
+        def a(ctx, u, v):
+            uu = ctx.rationalize(u) if rationalize else u
+            vv = ctx.rationalize(v) if rationalize else v
+            return torch.sum(uu.val * vv.val)
+
+        return self._solve_linearized(a, self._zeros(), b,
+                                      apply_bcs=apply_bcs)
+
+    # fitting a pointwise function into the spline space
+    fit = project
 
     # -- point evaluation -----------------------------------------------------
 

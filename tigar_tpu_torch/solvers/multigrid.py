@@ -3,17 +3,18 @@ tigar_tpu/solvers/multigrid.py).
 
 Nested spline spaces under knot insertion give an exact prolongation
 V_coarse -> V_fine (Boehm's algorithm, ops/refine.py; collocation for
-periodic vectors), applied per direction: by the stencil multigrid of
-solvers/newton_stencil.py, and here by ``Multigrid``, a V-cycle with
-weighted-Jacobi or Chebyshev smoothing over given level operators and a
-dense coarse inverse.  ``identity_poisson_multigrid`` builds it over the
-sum-factorized identity-geometry operators (ops/sumfac.py, kernel K4 on
-the card): the solver of the matrix-free 3D Poisson path.
+periodic vectors), applied per direction and per field: by the stencil
+multigrid of solvers/newton_stencil.py, and here by ``Multigrid``, a
+V-cycle with weighted-Jacobi or Chebyshev smoothing and a dense coarse
+inverse, over the tangent actions of a form on nested ExtractedSplines
+(``Multigrid(splines, form)``, the ``mg_cg`` solver) or over given level
+operators (``from_level_data``).  ``identity_poisson_multigrid`` builds it
+over the sum-factorized identity-geometry operators (ops/sumfac.py, kernel
+K4 on the card): the solver of the matrix-free 3D Poisson path.
 
 The transfers are separable tensordots and the coarse solve one matrix
-product, left to torch as the JAX package leaves them to XLA.  The
-form-based constructor (``Multigrid(splines, form)``) and multipatch
-transfers wait for the generic form path and the multipatch spaces.
+product, left to torch as the JAX package leaves them to XLA.  Multipatch
+transfers wait for the merged multipatch spaces.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..ops.refine import insert_knot
 from ..ops.sumfac import make_sumfac_identity_operator
 from ..config import KNOT_NEAR_EPS, DEFAULT_REAL_TYPE, resolve_device
 
-# V(2,2) weighted-Jacobi smoothing, as the JAX package's default; the
+# V(2,2) weighted-Jacobi smoothing, the JAX package's default; the
 # Chebyshev smoother's power iterations and range [0.25, 1.1] x lmax
 N_SMOOTH, OMEGA = 2, 0.7
 CHEB_POWER_ITERS, CHEB_LOWER, CHEB_UPPER = 12, 0.25, 1.1
@@ -160,31 +161,86 @@ def make_field_transfer(basis_coarse, basis_fine, dtype, device):
 
 
 class Multigrid:
-    """V-cycle preconditioner over nested scalar levels [fine, ..., coarse].
+    """V-cycle preconditioner over nested levels [fine, ..., coarse].
 
-    Use as the ``M`` argument of solvers.linear.cg_fixed_iters.  Each
-    non-coarse level runs N_SMOOTH weighted-Jacobi sweeps (OMEGA) before
-    and after the coarse correction, or one Chebyshev polynomial of degree
-    N_SMOOTH + 1 after ``enable_chebyshev``; the coarsest level applies a
-    dense inverse computed at setup.  The V-cycle is a fixed SPD linear
-    operator (zero initial guess, symmetric pre/post smoothing).  Build it
-    with ``from_level_data``.
+    Use as the ``M`` argument of solvers.linear.cg_fixed_iters /
+    solve_krylov, or through ExtractedSpline.set_solver_options(
+    linear_solver="mg_cg", mg_levels=[...coarser splines...]).  Each
+    non-coarse level runs ``n_smooth`` weighted-Jacobi sweeps (``omega``)
+    before and after the coarse correction, or one Chebyshev polynomial of
+    degree n_smooth + 1 after ``enable_chebyshev``; the coarsest level
+    applies a dense inverse computed at setup.  The V-cycle is a fixed SPD
+    linear operator (zero initial guess, symmetric pre/post smoothing).
+
+    ``Multigrid(splines, form, ...)`` builds the levels from ExtractedSplines
+    discretizing one problem (same form and BCs, nested knot vectors per
+    field): the level operators are the matrix-free tangent actions of
+    ``form`` at ``states`` (zero by default), the Jacobi diagonals and the
+    coarsest dense matrix are assembled from it.  ``actions`` / ``diags``
+    override a level's action (W -> A_l W, BC'd with unit diagonal) or
+    diagonal (entries may be None).  ``dtype`` is the V-cycle's precision
+    (level actions, transfers, coarse inverse; default the fine spline's):
+    a float32 cycle inside a float64 Krylov solve.  The coarse inverse is
+    taken in float64 on the splines' device and then cast.
+    ``from_level_data`` builds it from operators alone.
     """
 
-    def __init__(self, actions, dinvs, masks, transfers, coarse_inv):
-        self._actions = list(actions)
-        self.levels = [{"dinv": di, "mask": mk}
-                       for di, mk in zip(dinvs, masks)]
-        self.transfers = transfers
-        self._coarse_inv = coarse_inv
+    def __init__(self, splines, form, params=None, n_smooth=N_SMOOTH,
+                 omega=OMEGA, states=None, actions=None, diags=None,
+                 dtype=None):
+        if len(splines) < 2:
+            raise ValueError("need at least two levels")
+        self.splines = list(splines)
+        self.form = form
+        self.params = params
+        self.n_smooth = int(n_smooth)
+        self.omega = float(omega)
+        fine = self.splines[0]
+        dtype = fine.dtype if dtype is None else dtype
+        self._act_dtype = None if dtype == fine.dtype else dtype
+        device = fine.device
+        nlev = len(self.splines)
+        states = [None] * nlev if states is None else list(states)
+        self._actions = [None] * nlev if actions is None else list(actions)
+        diags = [None] * nlev if diags is None else list(diags)
+
+        self.levels = []
+        for spline, U, dg in zip(self.splines, states, diags):
+            U_ = spline._zeros() if U is None else U
+            diag = (spline.assemble_diagonal(form, U=U_, params=params)
+                    if dg is None else torch.as_tensor(dg, device=device))
+            diag = diag.to(dtype)
+            self.levels.append({
+                "spline": spline, "U": U_,
+                "dinv": torch.where(diag != 0.0, 1.0 / diag,
+                                    torch.ones_like(diag)),
+                "mask": spline.mask.to(dtype)})
+
+        self.transfers = []
+        for lf, lc in zip(self.splines[:-1], self.splines[1:]):
+            if lf.space.nfields != lc.space.nfields:
+                raise ValueError("levels must have matching field counts")
+            self.transfers.append([
+                make_field_transfer(bc, bf, dtype, device)
+                for bc, bf in zip(lc.space.fields, lf.space.fields)])
+        self._fslices = [tuple(s.space.field_slice(f)
+                               for f in range(s.space.nfields))
+                         for s in self.splines]
+
+        coarse = self.splines[-1]
+        A_c = coarse.assemble_matrix(form, U=self.levels[-1]["U"],
+                                     params=params)
+        self._coarse_inv = torch.linalg.inv(A_c.to(torch.float64)).to(dtype)
         self._cheb_bounds = None
 
     @classmethod
     def from_level_data(cls, level_bases, actions, diags, masks,
-                        coarse_dense, dtype=None, device="cuda"):
-        """Operator-level constructor.
+                        coarse_dense, n_smooth=N_SMOOTH, omega=OMEGA,
+                        dtype=None, device="cuda"):
+        """Operator-level constructor: no ExtractedSplines required.
 
-        level_bases  : per level, the scalar TensorBSplineBasis; nested
+        level_bases  : per level, a list of per-field TensorBSplineBasis
+                       (or one basis for a scalar space); nested
                        fine->coarse
         actions      : per level, W -> A_l @ W (already BC'd, unit diagonal
                        at constrained DoFs), e.g. sum-factorized identity
@@ -202,22 +258,63 @@ class Multigrid:
             raise ValueError("from_level_data requires an action per level")
         if dtype is None:
             dtype = torch.as_tensor(diags[0]).dtype
+        level_bases = [list(b) if isinstance(b, (list, tuple)) else [b]
+                       for b in level_bases]
 
         def t(x):
             return torch.as_tensor(x, device=device).to(dtype)
 
-        dinvs, mks = [], []
+        obj = cls.__new__(cls)
+        obj.splines = obj.form = obj.params = obj._act_dtype = None
+        obj.n_smooth = int(n_smooth)
+        obj.omega = float(omega)
+        obj._actions = list(actions)
+        obj.levels = []
         for dg, mk in zip(diags, masks):
             dg = t(dg)
-            dinvs.append(torch.where(dg != 0.0, 1.0 / dg,
-                                     torch.ones_like(dg)))
-            mks.append(t(mk))
-        transfers = [make_field_transfer(bc, bf, dtype, device)
-                     for bf, bc in zip(level_bases[:-1], level_bases[1:])]
+            obj.levels.append({
+                "spline": None, "U": None,
+                "dinv": torch.where(dg != 0.0, 1.0 / dg, torch.ones_like(dg)),
+                "mask": t(mk)})
+        obj.transfers = []
+        for bf, bc in zip(level_bases[:-1], level_bases[1:]):
+            if len(bf) != len(bc):
+                raise ValueError("levels must have matching field counts")
+            obj.transfers.append([make_field_transfer(c, f, dtype, device)
+                                  for c, f in zip(bc, bf)])
+        obj._fslices = []
+        for bases in level_bases:
+            offs = np.concatenate([[0], np.cumsum([b.ncp for b in bases])])
+            obj._fslices.append(tuple(
+                slice(int(offs[f]), int(offs[f + 1]))
+                for f in range(len(bases))))
         A_c = torch.as_tensor(coarse_dense, dtype=torch.float64,
                               device=device)
-        coarse_inv = torch.linalg.inv(A_c).to(dtype)
-        return cls(actions, dinvs, mks, transfers, coarse_inv)
+        obj._coarse_inv = torch.linalg.inv(A_c).to(dtype)
+        obj._cheb_bounds = None
+        return obj
+
+    # -- level algebra ----------------------------------------------------------
+
+    def _action(self, level, W):
+        if self._actions[level] is not None:
+            return self._actions[level](W)
+        lev = self.levels[level]
+        return lev["spline"].tangent_action(self.form, lev["U"], W,
+                                            params=self.params,
+                                            dtype=self._act_dtype)
+
+    def _prolong(self, level, xc):
+        """Coarse (level+1) -> fine (level), field by field."""
+        sl = self._fslices[level + 1]
+        return torch.cat([t.prolong(xc[sl[f]])
+                          for f, t in enumerate(self.transfers[level])])
+
+    def _restrict(self, level, xf):
+        """Fine (level) -> coarse (level+1), field by field."""
+        sl = self._fslices[level]
+        return torch.cat([t.restrict(xf[sl[f]])
+                          for f, t in enumerate(self.transfers[level])])
 
     # -- smoothers ------------------------------------------------------------
 
@@ -234,7 +331,7 @@ class Multigrid:
                                 device=dinv.device).to(dinv.dtype)
             lmax = 1.0
             for _ in range(CHEB_POWER_ITERS):
-                w = dinv * self._actions[level](v)
+                w = dinv * self._action(level, v)
                 lmax = float(torch.linalg.norm(w))
                 v = w / lmax
             bounds.append((CHEB_LOWER * lmax, CHEB_UPPER * lmax))
@@ -245,7 +342,10 @@ class Multigrid:
         """Apply the smoother from initial guess ``x`` (None = zero);
         linear in (b, x), identical pre/post -> the V-cycle stays SPD."""
         dinv = self.levels[level]["dinv"]
-        action = self._actions[level]
+
+        def action(w):
+            return self._action(level, w)
+
         if self._cheb_bounds is not None:
             lmin, lmax = self._cheb_bounds[level]
             theta = 0.5 * (lmax + lmin)
@@ -258,19 +358,19 @@ class Multigrid:
             else:
                 r = b - action(x)
             d = (dinv * r) / theta
-            for _ in range(N_SMOOTH + 1):
+            for _ in range(self.n_smooth + 1):
                 x = x + d
                 r = r - action(d)
                 rho_new = 1.0 / (2.0 * sigma - rho)
                 d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (dinv * r)
                 rho = rho_new
             return x
-        om_dinv = OMEGA * dinv
+        om_dinv = self.omega * dinv
         if x is None:
             x = om_dinv * b
-            sweeps = N_SMOOTH - 1
+            sweeps = self.n_smooth - 1
         else:
-            sweeps = N_SMOOTH
+            sweeps = self.n_smooth
         for _ in range(sweeps):
             x = x + om_dinv * (b - action(x))
         return x
@@ -280,11 +380,10 @@ class Multigrid:
             return self._coarse_inv @ b
         lev = self.levels[level]
         x = self._smooth(level, b)
-        r = b - self._actions[level](x)
-        rc = self.levels[level + 1]["mask"] * \
-            self.transfers[level].restrict(r)
+        r = b - self._action(level, x)
+        rc = self.levels[level + 1]["mask"] * self._restrict(level, r)
         ec = self._vcycle(level + 1, rc)
-        x = x + lev["mask"] * self.transfers[level].prolong(ec)
+        x = x + lev["mask"] * self._prolong(level, ec)
         return self._smooth(level, b, x)
 
     def __call__(self, r):
