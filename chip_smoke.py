@@ -4,8 +4,9 @@ Newton path of the clamped SVK Kirchhoff-Love shell (stencil multigrid,
 and the space-agnostic smoothed-aggregation tier), the two-patch coupled
 shells, the matrix-free 3D Poisson multigrid path, the generic form
 path (2D Poisson through user-written densities, mixed-precision
-refinement, smoothed-aggregation CG) and the shell with nonlocal penalty
-self-contact (the reef-knot demo).
+refinement, smoothed-aggregation CG), the shell with nonlocal penalty
+self-contact (the reef-knot demo) and sum-factorized assembly of arbitrary
+forms (the shell and a reduced-continuity 3D Poisson).
 
     python3 chip_smoke.py
 
@@ -21,7 +22,9 @@ f64 CG, 20 iterations, preconditioned by an f32 V-cycle over 96/48/24/12/6
 with Jacobi V(2,2) smoothing, every operator apply sum-factorized.
 
 Phases, each fatal on failure (nothing is caught):
-  1. build the CUDA kernels from tigar_tpu_torch/csrc;
+  1. build the CUDA kernels from tigar_tpu_torch/csrc, then one refused
+     call per check site of every binding, each in a child process
+     (tigar_tpu_torch.ops.refusals): every one must raise RuntimeError;
   2. per kernel, at the main paths' shapes and seeded inputs: kernel
      against its plain PyTorch twin on the card (max relative error;
      tolerance f64 1e-12, f32 1e-4 on K2's stencils and element
@@ -133,6 +136,24 @@ Phases, each fatal on failure (nothing is caught):
      (MG=1, the form-based V-cycle), f64 CG of 10 iterations (the same
      Newton count, U within 1e-10); the profile of one Newton
      correction's CG.
+ 13. sum-factorized forms (make_sumfac_assembler -> residual_vector /
+     tangent_action): with phase 2, K15 (jets) and K16 (their transpose)
+     against their plain versions, f64 1e-12 and f32 1e-5 of the largest
+     entry, on the 128^2 shell's three fields and its control net at
+     nders 2, the 24^3 continuity_drop=1 Poisson field at nders 1, a
+     small periodic (gather) field and the small RT pair, with CUDA-event
+     and device times and byte bounds; after phase 11 the main path of
+     scripts/bench_shell_sumfac.py (the 128^2 shell, E=1e7, nu=0.3,
+     h=0.03, q=1e-2, U = 1e-4 N(0, 1) from numpy seed 0, the shell
+     reference on the sumfac ctx): the sumfac residual and tangent action
+     (f64) with K15/K16's counts reset just before and read just after,
+     each within 1e-9 of the generic assembler's, best of 3 warm times of
+     both assemblers' residual and the sumfac tangent action (f32, f64),
+     and the 24^3 reduced-continuity Poisson residual (p=2, quadrature
+     degree 4, 117,649 DoFs) against the generic one (1e-12), both timed;
+     with the small-input references, the card against the CPU plain
+     versions at tests/test_sumfac_forms.py's sizes (shell nel=5, 3D
+     nel=3; 1e-12).
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -1987,6 +2008,291 @@ def profile_reef_knot_cg(U, device):
             f"{count:6d} x  {key[:90]}")
 
 
+# -- phase 13: sum-factorized forms (K15, K16) --------------------------------
+
+# scripts/bench_shell_sumfac.py:40-62: the clamped 128^2 SVK shell (the
+# shell path's spline), E=1e7, nu=0.3, h=0.03, load q=1e-2 on the third
+# field, U = 1e-4 N(0, 1) from numpy seed 0; the module docstring's 3D
+# Poisson residual (tigar_tpu/ops/sumfac_forms.py:28-37): p=2, 24^3
+# elements, continuity_drop=1, quadrature degree 4, 117,649 DoFs
+SF_Q, SF_NEL3 = 1.0e-2, 24
+SF_TOL = {"f64": 1e-12, "f32": 1e-5, "shell": 1e-9, "poisson": 1e-12,
+          "ref": 1e-12}
+
+
+def sf_shell_form(ctx, u, v):
+    from tigar_tpu_torch.forms import deriv
+    from tigar_tpu_torch.models.shell import svk_psi_surface
+    return deriv(lambda y: svk_psi_surface(ctx, y, E_MOD, NU, H_TH), u,
+                 v) - SF_Q * v.val[2]
+
+
+def sf_poisson_form(ctx, u, v):
+    uu, vv = ctx.rationalize(u), ctx.rationalize(v)
+    return torch.dot(ctx.grad(uu), ctx.grad(vv)) - 1.0 * vv.val
+
+
+def sf_shell_assembler(spline):
+    """The sumfac assembler with the shell reference attached to its ctx
+    (scripts/bench_shell_sumfac.py:63-68)."""
+    from tigar_tpu_torch.models.shell import shell_reference
+    from tigar_tpu_torch.ops.sumfac_forms import make_sumfac_assembler
+    asm = make_sumfac_assembler(spline)
+    aux = dict(asm.ctx.aux or {})
+    aux["shell_ref"] = shell_reference(asm.ctx)
+    asm.ctx = asm.ctx._replace(aux=aux)
+    return asm
+
+
+def sf_poisson_spline(nel, device):
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import ExplicitBSplineControlMesh
+    from tigar_tpu_torch.models.space import EqualOrderSpline
+    from tigar_tpu_torch.models.extracted import ExtractedSpline
+    kv = uniform_knots(2, 0.0, 1.0, nel, continuity_drop=1)
+    cm = ExplicitBSplineControlMesh([2, 2, 2], [kv] * 3)
+    return ExtractedSpline(EqualOrderSpline(1, cm), quad_degree=4,
+                           device=device)
+
+
+def sf_layouts(device, shell_spline, shell_asm, poisson_asm):
+    """(label, layout) of every K15/K16 check: the shell's three fields
+    and its control net (four columns) at nders 2, the 24^3 field at
+    nders 1, a small periodic (gather) field and the small RT pair."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import (ExplicitBSplineControlMesh,
+                                                TensorBSplineBasis)
+    from tigar_tpu_torch.models.compatible import generate_fields_compat
+    from tigar_tpu_torch.ops.sumfac_forms import (DevicePlan, FieldPlan,
+                                                  JetGroup, JetLayout)
+    ctrl = DevicePlan(FieldPlan(shell_spline.control_basis,
+                                shell_spline.npts, 2), device, torch.float64)
+    m = shell_spline.bnet.shape[1]
+    out = [(f"shell fields {NEL}^2", shell_asm.layout),
+           (f"shell control net {NEL}^2",
+            JetLayout([JetGroup(ctrl, 0, m, 1, m, 0)],
+                      m * shell_spline.control_basis.ncp)),
+           (f"poisson {SF_NEL3}^3 drop 1", poisson_asm.layout)]
+    per = DevicePlan(FieldPlan(TensorBSplineBasis([2, 2], [
+        uniform_knots(2, 0., 1., 6, periodic=True),
+        uniform_knots(2, 0., 1., 4)]), 3, 2), device, torch.float64)
+    out.append(("periodic 6x4", JetLayout(
+        [JetGroup(per, 0, 1, per.ncp, 1, 0)], per.ncp)))
+    rt = [DevicePlan(FieldPlan(b, 3, 1), device, torch.float64)
+          for b in generate_fields_compat(ExplicitBSplineControlMesh(
+              [1, 1], [uniform_knots(1, 0., 1., 4)] * 2), "RT", [1, 1])]
+    out.append(("RT 4x4", JetLayout(
+        [JetGroup(rt[0], 0, 1, rt[0].ncp, 1, 0),
+         JetGroup(rt[1], rt[0].ncp, 1, rt[1].ncp, 1, 1)],
+        rt[0].ncp + rt[1].ncp)))
+    return out
+
+
+def sf_jets_bytes(layout, dt, with_jets=True):
+    """Bytes K15 (or K16) must move: the coefficient vector, the tables
+    and windows read once, the jets written (read) once."""
+    es = torch.tensor([], dtype=dt).element_size()
+    tabs = sum(t.numel() * es for g in layout.groups for t in g.plan.tabs)
+    idx = sum(4 * i.numel() for g in layout.groups for i in g.plan.idxs
+              if i is not None)
+    njets = 1 + layout.dim + (layout.dim ** 2 if layout.nders >= 2 else 0)
+    return layout.n * es + tabs + idx + layout.nq_total * layout.M * \
+        njets * es
+
+
+def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
+    """Phase 13, step 1 (with phase 2's kernel checks, before the main
+    paths' profiler sessions): K15/K16 against their plain versions in f64
+    and f32 at every layout of ``sf_layouts`` (f64 1e-12, f32 1e-5 of the
+    largest entry), their CUDA-event times, byte bounds and (right away)
+    device times."""
+    from tigar_tpu_torch.ops import sumfac_forms as sf
+    rec.setdefault("sumfac_jets", [])
+    rec.setdefault("sumfac_scatter_jets", [])
+    rng = np.random.default_rng(4)
+    for label, lay64 in sf_layouts(device, shell_spline, shell_asm,
+                                   poisson_asm):
+        W64 = torch.as_tensor(rng.normal(size=lay64.n), device=device)
+        full = "fields" in label or "poisson" in label
+        for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            lay = lay64 if dt == torch.float64 else lay64.cast(dt)
+            W = W64.to(dt)
+            jk, jp = sf.jets_cuda(W, lay), sf.jets_plain(W, lay)
+            torch.cuda.synchronize()
+            ref = max(float(x.abs().max()) for x in jp if x is not None)
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(jk, jp) if b is not None)
+            cot = tuple(None if x is None else torch.as_tensor(
+                rng.normal(size=tuple(x.shape)), device=device).to(dt)
+                for x in jp)
+            name = f"K15 sumfac_jets {tag} {label}"
+            ms = cuda_ms(lambda w=W, l=lay: sf.jets_cuda(w, l),
+                         20 if full else 5)
+            plain_ms = cuda_ms(lambda w=W, l=lay: sf.jets_plain(w, l), 3)
+            say(f"phase {name}: max rel err {err / ref:.3e} (tol "
+                f"{SF_TOL[tag]:g}), max abs err {err:.3e}, kernel "
+                f"{ms:.4f} ms, twin {plain_ms:.4f} ms")
+            if not err <= SF_TOL[tag] * ref:
+                raise SystemExit(f"phase {name} FAILED")
+            entry = dict(name=name, rel=err / ref, abs=err, ms=ms,
+                         plain_ms=plain_ms)
+            entry["bound_ms"], entry["bound_by"] = bound(
+                sf_jets_bytes(lay, dt), 0.0, dt)
+            say(f"    bound {entry['bound_ms']:.4f} ms by bytes "
+                f"({sf_jets_bytes(lay, dt) / 1e6:.2f} MB)")
+            entry["probe"] = (lambda w=W, l=lay: sf.jets_cuda(w, l),
+                              20 if full else 5, "sumfac_jets_kernel",
+                              len(lay.groups))
+            rec["sumfac_jets"].append(entry)
+            probe_device_time(entry)
+            compare(f"K16 sumfac_scatter_jets {tag} {label}",
+                    lambda c=cot, l=lay: sf.scatter_jets_cuda(c, l),
+                    lambda c=cot, l=lay: sf.scatter_jets_plain(c, l),
+                    SF_TOL[tag], 20 if full else 5, 3,
+                    rec["sumfac_scatter_jets"],
+                    match="sumfac_scatter_jets_kernel",
+                    work=(sf_jets_bytes(lay, dt), 0.0, dt),
+                    per_call=len(lay.groups))
+            probe_device_time(rec["sumfac_scatter_jets"][-1])
+
+
+def sumfac_forms_path(device, shell_spline, shell_asm, poisson_sp,
+                      poisson_asm):
+    """Phase 13, step 2, the main path: the 128^2 shell's sumfac residual
+    and tangent action (f64) with K15/K16's counts reset just before and
+    read just after, each against the generic assembler (<= 1e-9 of the
+    largest entry, as scripts/bench_shell_sumfac.py asserts); best of 3
+    warm times of both assemblers' residual and the sumfac tangent action,
+    f32 and f64; the 24^3 Poisson residual, sumfac against generic (f64,
+    1e-12), both timed.  Returns the main path's launches."""
+    from tigar_tpu_torch.forms import tree_jvp
+    from tigar_tpu_torch.ops import cuda_ext
+    ndof = shell_spline.ndof
+    rng = np.random.default_rng(0)
+    U64 = torch.as_tensor(rng.normal(size=ndof) * 1e-4, device=device)
+    W64 = torch.as_tensor(rng.normal(size=ndof), device=device)
+    gen = shell_spline._assembler("dx")
+    torch.cuda.synchronize()
+    cuda_ext.reset_counts()
+    r_sf = shell_asm.residual_vector(sf_shell_form, U64)
+    t_sf = shell_asm.tangent_action(sf_shell_form, U64, W64)
+    torch.cuda.synchronize()
+    launches = {k: cuda_ext.counts()[k]
+                for k in ("sumfac_jets", "sumfac_scatter_jets")}
+    r_gen, t_gen = tree_jvp(
+        lambda a: gen.residual_vector(sf_shell_form, a), U64, W64)
+    for what, a, b in (("residual", r_sf, r_gen), ("tangent action", t_sf,
+                                                   t_gen)):
+        if tuple(a.shape) != (ndof,) or not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"sumfac shell {what} is not finite or has "
+                             "the wrong shape")
+        d, m = float((a - b).abs().max()), float(b.abs().max())
+        say(f"sumfac shell {NEL}^2 {what} (f64): max |generic - sumfac| "
+            f"{d:.3e} (rel {d / m:.3e}, tol {SF_TOL['shell']:g})")
+        if not d <= SF_TOL["shell"] * m:
+            raise SystemExit(f"sumfac shell {what} FAILED")
+    say(f"sumfac shell main path (one residual, one tangent action) "
+        f"kernel launches: {launches}")
+    if min(launches.values()) <= 0:
+        raise SystemExit("the sumfac main path never launched K15/K16")
+    times = {}
+    for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        g = gen if dt == torch.float64 else gen.astype(dt)
+        s = shell_asm if dt == torch.float64 else shell_asm.to(dt)
+        U, W = U64.to(dt), W64.to(dt)
+        for name, fn in (
+                ("generic residual",
+                 lambda g=g, U=U: g.residual_vector(sf_shell_form, U)),
+                ("sumfac residual",
+                 lambda s=s, U=U: s.residual_vector(sf_shell_form, U)),
+                ("sumfac tangent action",
+                 lambda s=s, U=U, W=W: s.tangent_action(sf_shell_form, U,
+                                                        W))):
+            fn()
+            cuda_ext.reset_counts()
+            times[f"{name} {tag}"] = best_of_3(fn)
+            c = cuda_ext.counts()
+            say(f"sumfac shell {NEL}^2 {name} {tag}: best of 3 "
+                f"{times[f'{name} {tag}'] * 1e3:.3f} ms (K15 "
+                f"{c['sumfac_jets']}, K16 {c['sumfac_scatter_jets']} "
+                f"launches in the 3 calls)")
+    Up = torch.as_tensor(rng.normal(size=poisson_sp.ndof), device=device)
+    gp = poisson_sp._assembler("dx")
+    rp_sf = poisson_asm.residual_vector(sf_poisson_form, Up)
+    rp_gen = gp.residual_vector(sf_poisson_form, Up)
+    d = float((rp_sf - rp_gen).abs().max()) / float(rp_gen.abs().max())
+    t_psf = best_of_3(lambda: poisson_asm.residual_vector(sf_poisson_form,
+                                                          Up))
+    t_pgen = best_of_3(lambda: gp.residual_vector(sf_poisson_form, Up))
+    say(f"sumfac poisson {SF_NEL3}^3 continuity_drop=1 "
+        f"({poisson_sp.ndof} DoFs) residual (f64): rel diff to generic "
+        f"{d:.3e} (tol {SF_TOL['poisson']:g}); best of 3 sumfac "
+        f"{t_psf * 1e3:.3f} ms, generic {t_pgen * 1e3:.3f} ms")
+    if not d <= SF_TOL["poisson"]:
+        raise SystemExit("sumfac 24^3 Poisson residual FAILED")
+    return launches
+
+
+def sumfac_reference(device):
+    """Phase 13, step 3: at tests/test_sumfac_forms.py's sizes (the shell
+    at nel=5, the 3D Poisson at nel=3) the card's kernels against the CPU
+    plain versions: residual (and the shell's tangent action) within
+    1e-12."""
+    from tigar_tpu_torch.ops.knots import uniform_knots
+    from tigar_tpu_torch.models.bspline import ExplicitBSplineControlMesh
+    from tigar_tpu_torch.models.space import EqualOrderSpline
+    from tigar_tpu_torch.models.extracted import ExtractedSpline
+    from tigar_tpu_torch.ops.sumfac_forms import make_sumfac_assembler
+    rng = np.random.default_rng(7)
+    diffs = {}
+    for label, form in (("shell nel=5", sf_shell_form),
+                        ("3d nel=3", sf_poisson_form)):
+        out = {}
+        for dev in ("cpu", device):
+            if form is sf_shell_form:
+                cm = ExplicitBSplineControlMesh(
+                    [2, 2], [uniform_knots(2, -1., 1., 5)] * 2, extra_dim=1)
+                sp = ExtractedSpline(EqualOrderSpline(3, cm), quad_degree=4,
+                                     nders=2, device=dev)
+            else:
+                cm = ExplicitBSplineControlMesh(
+                    [2, 2, 2], [uniform_knots(2, 0., 1., 3)] * 3)
+                sp = ExtractedSpline(EqualOrderSpline(1, cm), quad_degree=4,
+                                     device=dev)
+            asm = make_sumfac_assembler(sp)
+            if dev == "cpu":
+                U = rng.normal(size=sp.ndof) * 1e-3
+                W = rng.normal(size=sp.ndof)
+            Ut = torch.as_tensor(U, device=dev)
+            Wt = torch.as_tensor(W, device=dev)
+            out[dev == "cpu"] = [asm.residual_vector(form, Ut).cpu()]
+            if form is sf_shell_form:
+                out[dev == "cpu"].append(
+                    asm.tangent_action(form, Ut, Wt).cpu())
+        diffs[label] = max(rel_diff(a, b) for a, b in zip(out[False],
+                                                          out[True]))
+    say(f"sumfac small-input reference: card against CPU plain versions, "
+        f"max rel diff {diffs}")
+    if not all(v <= SF_TOL["ref"] for v in diffs.values()):
+        raise SystemExit("sumfac small-input reference FAILED")
+
+
+def binding_refusals():
+    """C3: one refused call per check site of every binding, all in one
+    child process (tigar_tpu_torch.ops.refusals), so that a call that
+    ends its process fails this phase instead of the script; every one
+    must raise RuntimeError."""
+    from tigar_tpu_torch.ops import refusals
+    t0 = time.time()
+    rc, lines = refusals.run()
+    for ln in lines:
+        if not ln.endswith(": ..."):
+            say(f"refusal {ln}")
+    if rc != 0:
+        raise SystemExit(f"binding refusals FAILED (exit {rc})")
+    say(f"binding refusals: {time.time() - t0:.1f} s")
+
+
 def main():
     global CARD
     from tigar_tpu_torch.config import require_cuda
@@ -2005,6 +2311,7 @@ def main():
     cuda_ext.load()
     say(f"kernel build: {cuda_ext.build_seconds:.1f} s "
         f"({len(cuda_ext.SOURCES) - 1} .cu + bindings.cpp, sm_90a)")
+    binding_refusals()
 
     t0 = time.time()
     ns, mg_sizes = build_solver(NEL, device)
@@ -2017,6 +2324,18 @@ def main():
     rec["sumfac_apply"] = sumfac_phases(device)
     # K13/K14 and their profiler session come first of all the sessions
     contact_early(device, rec)
+    # phase 13, step 1: K15/K16 at the shell's and the 24^3 Poisson's shapes
+    t13 = time.time()
+    sf_shell = sf_shell_assembler(ns.spline)
+    sf_psp = sf_poisson_spline(SF_NEL3, device)
+    from tigar_tpu_torch.ops.sumfac_forms import make_sumfac_assembler
+    sf_pasm = make_sumfac_assembler(sf_psp)
+    torch.cuda.synchronize()
+    say(f"sumfac assemblers: shell {NEL}^2 ({sf_shell.nq_total} points), "
+        f"poisson {SF_NEL3}^3 drop 1 ({sf_psp.ndof} DoFs, "
+        f"{sf_pasm.nq_total} points): {time.time() - t13:.2f} s")
+    sumfac_kernel_phases(device, ns.spline, sf_shell, sf_pasm, rec)
+    t13 = time.time() - t13
 
     # -- the shell main path: warm steps, then the solve with every launch
     # count reset just before it and read just after -----------------------
@@ -2118,6 +2437,13 @@ def main():
     launches["ell_spmv_twolevel"] = by_path["generic_sa_two_level"][
         "ell_spmv_twolevel"] = gp["launches"]["sa_two_level"]["ell_spmv"]
 
+    # -- phase 13, step 2: the sum-factorized forms' main path -------------
+    t0 = time.time()
+    by_path["sumfac_forms"] = sumfac_forms_path(device, ns.spline, sf_shell,
+                                                sf_psp, sf_pasm)
+    launches.update(by_path["sumfac_forms"])
+    t13 += time.time() - t0
+
 
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
@@ -2175,6 +2501,10 @@ def main():
     two_patch_reference(device, "nitsche")
     sa_reference(device)
     generic_reference(device)
+    t0 = time.time()
+    sumfac_reference(device)
+    t13 += time.time() - t0
+    say(f"phase 13 (sum-factorized forms) took {t13:.1f} s")
 
     poisson_checks(device, pb, err96)
 
@@ -2210,7 +2540,11 @@ def main():
            "contact_residual": ("tigar_tpu_torch/csrc/contact_pairs.cu",
                                 "tigar_tpu/contact.py:205"),
            "contact_tangent": ("tigar_tpu_torch/csrc/contact_pairs.cu",
-                               "tigar_tpu/contact.py:210")}
+                               "tigar_tpu/contact.py:210"),
+           "sumfac_jets": ("tigar_tpu_torch/csrc/sumfac_jets.cu",
+                           "tigar_tpu/ops/sumfac_forms.py:189"),
+           "sumfac_scatter_jets": ("tigar_tpu_torch/csrc/sumfac_jets.cu",
+                                   "tigar_tpu/ops/sumfac_forms.py:319")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
@@ -2225,7 +2559,9 @@ def main():
             "ell_spmv": "P apply f32 level 0",
             "laplace_apply": f"2D p=2 nel={GP_NEL}",
             "ell_spmv_twolevel": "two-level A jacobi",
-            "contact_residual": "f64 (a)", "contact_tangent": "f32 (a)"}
+            "contact_residual": "f64 (a)", "contact_tangent": "f32 (a)",
+            "sumfac_jets": f"f64 shell fields {NEL}^2",
+            "sumfac_scatter_jets": f"f64 shell fields {NEL}^2"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]

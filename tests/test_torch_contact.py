@@ -7,9 +7,20 @@ state each package builds itself and, through convert.py, the JAX
 package's state handed to the port.  On CPU tensors the port runs the
 plain versions of K13/K14 (torch.func derivatives of the row-blocked pair
 energy); the kernels themselves are held to them on the card
-(tests/test_torch_kernels_cuda.py).  The Newton solves with contact are
-tests/test_torch_contact_newton.py, the reef-knot demo's step
+(tests/test_torch_kernels_cuda.py).  The reef-knot demo's step is
 tests/test_torch_reef_knot.py.
+
+The Newton solves with contact (the last three tests, mirroring
+tests/test_contact.py:81-200): the nonlinear variational solve, the
+combined manual Newton with a dense tangent, and the matrix-free
+combined Newton (shell JVP plus contact HVP inside Jacobi CG): the same
+iteration count and U within 1e-10 of the JAX package; the matrix-free
+Newton within 1e-6 of the port's dense one.  The port's AD shell tangent
+action takes 60-150 ms a call on a CPU with one torch thread (torch.func's
+nested transforms), so the Krylov loop that applies it runs 20 CG
+iterations (tests/test_contact.py:141 runs 400); both packages run the
+same count, and on these small problems (108-147 unknowns) the solves are
+near exact at it.
 
 Tolerances: index arrays and the mask equal, floats 1e-14 (the same host
 numpy); residual, tangent action and energy 1e-12 in float64 and 1e-5 in
@@ -17,16 +28,27 @@ float32 (every array cast, as the demo's ``contact32``), relative to the
 largest entry.
 """
 
+import contextlib
+import io
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from tigar_tpu.contact import PointContact as JContact
+from tigar_tpu.forms import deriv as jderiv
+from tigar_tpu.models.shell import svk_psi_surface as jpsi
+from tigar_tpu.solvers import linear as jlin
 
 from tigar_tpu_torch import convert
 from tigar_tpu_torch.contact import PointContact
+from tigar_tpu_torch.forms import deriv
+from tigar_tpu_torch.models.shell import svk_psi_surface
 from tigar_tpu_torch.ops import contact as ops_contact
+from tigar_tpu_torch.solvers.linear import (cg_fixed_iters,
+                                            jacobi_preconditioner)
 
 from torch_parity import contact_strip, jax_f32, rel
 
@@ -176,3 +198,131 @@ def test_custom_potential_runs_the_plain_version_on_cpu(active):
     assert rel(c.residual(U), active["tc"].residual(U)) <= 1e-14
     assert rel(c.tangent_action(U, W),
                active["tc"].tangent_action(U, W)) <= 1e-14
+
+
+# -- Newton solves with contact (tests/test_contact.py:81-200) ---------------
+
+CG_ITERS = 20           # the matrix-free Newton's CG (module docstring)
+E_MOD, NU, H_TH, Q = 1e5, 0.3, 0.05, -2.0
+
+
+def jres(ctx, u, v):
+    return jderiv(lambda y: jpsi(ctx, y, E_MOD, NU, H_TH), u, v) \
+        - Q * v.val[2]
+
+
+def tres(ctx, u, v):
+    return deriv(lambda y: svk_psi_surface(ctx, y, E_MOD, NU, H_TH), u, v) \
+        - Q * v.val[2]
+
+
+def _newton(pkg, spline, contact, solve_lin, rtol, max_iters=50):
+    """The manual combined Newton loop of tests/test_contact.py:117-139:
+    (U, iterations)."""
+    xp = jnp if pkg == "jax" else torch
+    U = (jnp.zeros(spline.ndof) if pkg == "jax"
+         else torch.zeros(spline.ndof, dtype=torch.float64))
+    res = jres if pkg == "jax" else tres
+    n0 = None
+    for it in range(max_iters):
+        r = spline.assemble_vector(res, U=U) \
+            + spline.mask * contact.residual(U)
+        nrm = float(xp.linalg.norm(r))
+        n0 = nrm if n0 is None else n0
+        if nrm / n0 < rtol:
+            return U, it
+        U = U - solve_lin(U, r)
+    raise AssertionError("combined Newton failed to converge")
+
+
+def _dense_solver(pkg, spline, contact):
+    res = jres if pkg == "jax" else tres
+    mask = spline.mask
+
+    def solve(U, r):
+        A = spline.assemble_matrix(res, U=U)
+        if pkg == "jax":
+            Kc = jax.jacfwd(lambda uu: mask * contact.residual(uu))(U)
+            return jnp.linalg.solve(A + Kc, r)
+        Kc = torch.func.jacfwd(lambda uu: mask * contact.residual(uu))(U)
+        return torch.linalg.solve(A + Kc, r)
+    return solve
+
+
+def _matfree_solver(pkg, spline, contact):
+    res = jres if pkg == "jax" else tres
+    mask = spline.mask
+    cg = jlin.cg_fixed_iters if pkg == "jax" else cg_fixed_iters
+    jac = jlin.jacobi_preconditioner if pkg == "jax" \
+        else jacobi_preconditioner
+
+    def cg_solve(U, r, diag):
+        def A_op(W):
+            return (spline.tangent_action(res, U, W)
+                    + mask * contact.tangent_action(U, mask * W))
+        return cg(A_op, r, CG_ITERS, M=jac(diag))[0]
+
+    if pkg == "jax":
+        # one compile for every Newton iteration (cg_fixed_iters' fori_loop
+        # would otherwise compile its body again at each call)
+        cg_solve = jax.jit(cg_solve)
+
+    def solve(U, r):
+        return cg_solve(U, r, spline.assemble_diagonal(res, U=U))
+    return solve
+
+
+@pytest.fixture(scope="module")
+def membrane():
+    """tests/test_contact.py:81-139's clamped membrane (nel=4): the pure
+    elastic Newton solve (r_self=1e9 disables every pair) through
+    solve_nonlinear_variational_problem, its log counting the iterates,
+    and the combined manual Newton with a dense tangent, in both
+    packages."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        sp = contact_strip(pkg, clamp=True)
+        sp.set_solver_options(max_iters=50, relative_tolerance=1e-6)
+        C = JContact if pkg == "jax" else PointContact
+        c0 = C(sp, k=1e8, r_max=0.05, r_self=1e9)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            U_noc = sp.solve_nonlinear_variational_problem(
+                jres if pkg == "jax" else tres, log=True)
+        c2 = C(sp, k=1e6, r_max=0.04, r_self=0.3)
+        U, its = _newton(pkg, sp, c2, _dense_solver(pkg, sp, c2), 1e-6)
+        out[pkg] = dict(U_noc=U_noc, e_noc=float(c0.energy(U_noc)),
+                        log=log.getvalue().splitlines(), U=U, its=its)
+    return out
+
+
+def test_nonlinear_solve_matches_jax(membrane):
+    j, t = membrane["jax"], membrane["torch"]
+    assert t["e_noc"] == 0.0 == j["e_noc"]
+    assert len(t["log"]) == len(j["log"]) > 1
+    assert rel(t["U_noc"], j["U_noc"]) <= 1e-10
+
+
+def test_combined_dense_newton_matches_jax(membrane):
+    j, t = membrane["jax"], membrane["torch"]
+    assert t["its"] == j["its"]
+    assert rel(t["U"], j["U"]) <= 1e-10
+    assert bool(torch.isfinite(t["U"]).all())
+
+
+def test_matrix_free_combined_newton_matches_jax():
+    """tests/test_contact.py:141 (nel=5): the combined tangent only as an
+    action (shell JVP + contact HVP) inside Jacobi CG, against the same
+    loop in the JAX package and against the port's dense Newton."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        sp = contact_strip(pkg, nel=5, clamp=True)
+        C = JContact if pkg == "jax" else PointContact
+        c = C(sp, k=1e6, r_max=0.04, r_self=0.3)
+        out[pkg] = _newton(pkg, sp, c, _matfree_solver(pkg, sp, c), 1e-9)
+        if pkg == "torch":
+            U_dense, _ = _newton(pkg, sp, c, _dense_solver(pkg, sp, c), 1e-9)
+    (Uj, nj), (Ut, nt) = out["jax"], out["torch"]
+    assert nt == nj
+    assert rel(Ut, Uj) <= 1e-10
+    assert rel(Ut, U_dense) <= 1e-6

@@ -7,8 +7,11 @@ through them, on the nel=8 plate; K12 on small 2D/3D Poisson splines and
 the two-level SA cycle through K11, with the generic form path's
 refinement and sa_cg solves through them; K13/K14 on contact strips of
 36, 1,024 and 1,089 points, and the reef-knot demo's step at NEL=6
-through them).  Every test skips without a CUDA
-device; run them on a GPU machine with
+through them; K15/K16 on the sum-factorized jets of the shell's fields
+and control net, a strided 3D field, a periodic field and an RT pair, and
+the sumfac shell residual and tangent action through them; one refused
+call per binding check site, which must raise).  Every test skips
+without a CUDA device; run them on a GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -18,7 +21,9 @@ nondeterministic order, and the stencil entries sum 4-36 element
 contributions of mixed sign); 1e-6 on the f32 interface block apply (no
 atomics, one dot product of m terms per row); K12 (f32 only) 1e-5, and
 2e-6 against the f64 AD tangent action (tests/test_fastpath.py); K13/K14
-f64 1e-12, f32 1e-5 (no atomics: each row is one warp's sum).
+f64 1e-12, f32 1e-5 (no atomics: each row is one warp's sum); K15/K16
+f64 1e-12, f32 1e-5 (no atomics, another sum order than the plain
+chains).
 """
 
 import numpy as np
@@ -833,3 +838,166 @@ def test_reef_knot_step_runs_through_kernels(cuda, mixed):
     assert len(hg[0]) == len(hc[0])
     tol = 1e-5 if mixed else 1e-10
     assert float((Ug.cpu() - Uc).abs().max()) <= tol * float(Uc.abs().max())
+
+
+# -- C3: a refused binding check raises -------------------------------------
+
+
+def test_binding_refusals_raise(cuda):
+    """One refused call per check site of every binding, in a child
+    process (tigar_tpu_torch.ops.refusals): every one raises RuntimeError
+    and none ends the process."""
+    from tigar_tpu_torch.ops import refusals
+    cuda_ext.load()
+    rc, lines = refusals.run()
+    assert rc == 0, "\n".join(lines)
+    done = [ln for ln in lines if ": RuntimeError: " in ln]
+    n = len(refusals._calls())
+    assert len(done) == n
+    assert f"refused calls: {n} of {n} raised RuntimeError" in lines
+
+
+# -- K15 / K16: sum-factorized jets and their transpose ----------------------
+
+
+def _jet_layout(case, device, dtype):
+    """The layout of a K15/K16 case: the shell's three fields at
+    nders 2, its control net's four interleaved columns, the strided 3D
+    reduced-continuity field, a periodic (gather) field and the RT pair of
+    per-field degrees."""
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    from tigar_tpu_torch.ops.sumfac_forms import (DevicePlan, FieldPlan,
+                                                  JetGroup, JetLayout)
+
+    def plan(basis, nders, npts=3):
+        return DevicePlan(FieldPlan(basis, npts, nders), device, dtype)
+
+    if case == "shell":
+        p = plan(TensorBSplineBasis([2, 2], [uniform_knots(2, -1., 1., 5)]
+                                    * 2), 2)
+        return JetLayout([JetGroup(p, 0, 3, p.ncp, 1, 0)], 3 * p.ncp)
+    if case == "bnet":
+        p = plan(TensorBSplineBasis([2, 2], [uniform_knots(2, -1., 1., 5)]
+                                    * 2), 2)
+        return JetLayout([JetGroup(p, 0, 4, 1, 4, 0)], 4 * p.ncp)
+    if case == "strided3d":
+        kv = uniform_knots(2, 0., 1., 3, continuity_drop=1)
+        p = plan(TensorBSplineBasis([2, 2, 2], [kv] * 3), 1)
+        assert all(m[0] == "slide" and m[2] == 2 for m in p.metas)
+        return JetLayout([JetGroup(p, 0, 1, p.ncp, 1, 0)], p.ncp)
+    if case == "periodic":
+        p = plan(TensorBSplineBasis([2, 2], [
+            uniform_knots(2, 0., 1., 6, periodic=True),
+            uniform_knots(2, 0., 1., 4)]), 2)
+        assert p.metas[0][0] == "gather"
+        return JetLayout([JetGroup(p, 0, 1, p.ncp, 1, 0)], p.ncp)
+    u = np.linspace(0.0, 1.0, 5)
+
+    def kv(deg):
+        return np.concatenate([[0.0] * deg, u, [1.0] * deg])
+
+    p0 = plan(TensorBSplineBasis([2, 1], [kv(2), kv(1)]), 1, npts=3)
+    p1 = plan(TensorBSplineBasis([1, 2], [kv(1), kv(2)]), 1, npts=3)
+    return JetLayout([JetGroup(p0, 0, 1, p0.ncp, 1, 0),
+                      JetGroup(p1, p0.ncp, 1, p1.ncp, 1, 1)],
+                     p0.ncp + p1.ncp)
+
+
+JET_CASES = ["shell", "bnet", "strided3d", "periodic", "rt"]
+
+
+@pytest.mark.parametrize("case", JET_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sumfac_jets_kernels(cuda, case, dtype, tol):
+    """K15 and K16 against their plain versions (the windowed chains and
+    their vjp) on the card, the adjoint identity <E u, c> = <u, E^T c>,
+    autograd through K15 (its backward is K16) and the launch counts:
+    f64 1e-12, f32 1e-5 of the largest entry (another sum order, no
+    atomics)."""
+    from tigar_tpu_torch.ops import sumfac_forms as sf
+    layout = _jet_layout(case, cuda, dtype)
+    g = torch.Generator().manual_seed(3)
+    W = torch.randn(layout.n, generator=g, dtype=torch.float64).to(
+        cuda, dtype)
+    cuda_ext.reset_counts()
+    jk = sf.layout_jets(W, layout)
+    jp = sf.jets_plain(W, layout)
+    assert cuda_ext.counts()["sumfac_jets"] == len(layout.groups)
+    assert (jk[2] is None) == (layout.nders < 2)
+    for a, b in zip(jk, jp):
+        if b is not None:
+            assert a.shape == b.shape and _rel(a, b) <= tol
+    cot = tuple(None if x is None else torch.randn(
+        x.shape, generator=g, dtype=torch.float64).to(cuda, dtype)
+        for x in jp)
+    rk = sf.layout_scatter(cot, layout)
+    rp = sf.scatter_jets_plain(cot, layout)
+    assert cuda_ext.counts()["sumfac_scatter_jets"] == len(layout.groups)
+    assert rk.shape == (layout.n,) and _rel(rk, rp) <= tol
+    lhs = sum(float((a.double() * c.double()).sum())
+              for a, c in zip(jk, cot) if c is not None)
+    rhs = float((W.double() * rk.double()).sum())
+    assert abs(lhs - rhs) <= 10 * tol * abs(rhs)
+    Wg = W.clone().requires_grad_(True)
+    out = sf.layout_jets(Wg, layout)
+    loss = sum((a * c).sum() for a, c in zip(out, cot) if c is not None)
+    (gW,) = torch.autograd.grad(loss, Wg)
+    assert _rel(gW, rp) <= tol
+
+
+def test_sumfac_jets_kernels_refuse_what_they_cannot_take(cuda):
+    """A degree above 3, a CPU plan and a wrong type raise."""
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    from tigar_tpu_torch.ops import sumfac_forms as sf
+    p4 = sf.DevicePlan(sf.FieldPlan(TensorBSplineBasis(
+        [4, 4], [uniform_knots(4, 0., 1., 2)] * 2), 5, 1), cuda,
+        torch.float64)
+    lay = sf.JetLayout([sf.JetGroup(p4, 0, 1, p4.ncp, 1, 0)], p4.ncp)
+    with pytest.raises(ValueError):
+        sf.jets_cuda(torch.zeros(p4.ncp, dtype=torch.float64, device=cuda),
+                     lay)
+    lay = _jet_layout("shell", cuda, torch.float64)
+    with pytest.raises(TypeError):
+        sf.jets_cuda(torch.zeros(lay.n, dtype=torch.float16, device=cuda),
+                     lay)
+    with pytest.raises(ValueError):
+        sf.jets_cuda(torch.zeros(lay.n, dtype=torch.float32, device=cuda),
+                     lay)
+
+
+def _sumfac_shell(device, nel=5):
+    from tigar_tpu_torch.models.shell import shell_reference
+    from tigar_tpu_torch.ops.sumfac_forms import make_sumfac_assembler
+    sp = _build(nel, device)
+    asm = make_sumfac_assembler(sp)
+    asm.ctx = asm.ctx._replace(aux={"shell_ref": shell_reference(asm.ctx)})
+    return sp, asm
+
+
+def _shell_form(ctx, u, v):
+    from tigar_tpu_torch.forms import deriv
+    from tigar_tpu_torch.models.shell import svk_psi_surface
+    return deriv(lambda y: svk_psi_surface(ctx, y, E_mod, nu, h_th), u, v) \
+        - 1e-2 * v.val[2]
+
+
+def test_sumfac_assembler_runs_through_kernels(cuda):
+    """The sumfac shell residual and tangent action on the card (K15/K16
+    launched) against the same assembler on the CPU (plain versions) and
+    the card's generic assembler: 1e-12 / 1e-9."""
+    spg, ag = _sumfac_shell(cuda)
+    spc, ac = _sumfac_shell("cpu")
+    g = torch.Generator().manual_seed(0)
+    U = 1e-3 * torch.randn(spc.ndof, generator=g, dtype=torch.float64)
+    W = torch.randn(spc.ndof, generator=g, dtype=torch.float64)
+    cuda_ext.reset_counts()
+    rg = ag.residual_vector(_shell_form, U.to(cuda))
+    tg = ag.tangent_action(_shell_form, U.to(cuda), W.to(cuda))
+    counts = cuda_ext.counts()
+    assert counts["sumfac_jets"] == 3 and counts["sumfac_scatter_jets"] == 2
+    rc = ac.residual_vector(_shell_form, U)
+    tc = ac.tangent_action(_shell_form, U, W)
+    assert _rel(rg.cpu(), rc) <= 1e-12 and _rel(tg.cpu(), tc) <= 1e-12
+    r_gen = spg._assembler("dx").residual_vector(_shell_form, U.to(cuda))
+    assert _rel(rg, r_gen) <= 1e-9

@@ -12,10 +12,13 @@ tigar_tpu's EnergyNitscheCoupling, on the CPU, with the same inputs:
     shell energy (w_order=2) on the Nitsche plate below: f64 1e-11, f32
     1e-5; ``convert`` carries a JAX form across unchanged;
   - MultiPatchStencilNewton on the Nitsche plate of
-    tests/test_newton_mp.py:132 at its two finest levels (16,16,20),
-    (8,8,10), E=1e7, h=0.05, q=0.05, beta_d = 10 (D/h^3 + E h/h),
+    tests/test_newton_mp.py:132 at its two coarsest levels (8,8,10),
+    (4,4,5) (a fine level and a coarse one, as its two finest levels;
+    the JAX reference's traces and compiles, not the plate size, set
+    the module's cost), E=1e7, h=0.05, q=0.05, beta_d = 10 (D/h^3 + E h/h),
     beta_r = 10 D/h per level, cg_iters=25, polish_cg_iters=40, with
-    every outer side clamped as in tests/test_torch_newton_mp_solve.py
+    every outer side clamped as in tests/test_torch_newton_mp.py's solver
+    tests
     (on the cantilever the residual after the first f32 step already
     differs by 0.4% between the two libraries, so no f32 step compares
     there): the operator at a
@@ -24,7 +27,11 @@ tigar_tpu's EnergyNitscheCoupling, on the CPU, with the same inputs:
 
 The shell density's form checks run on the solver's fine-level coupling,
 so that the JAX package compiles each of its residuals and tangent blocks
-once for the whole module (its solver compiles dominate the module's time).
+once for the whole module (its solver's traces dominate the module's
+time: three of the Nitsche tangent block, the coarse level's f32 at
+construction and the fine level's f32 and f64; the JAX energy is jitted
+so that its own trace and derivatives are reused among them, ~20% of
+the fixture).
 """
 
 import numpy as np
@@ -37,12 +44,16 @@ from torch_parity import (ALL_SIDES, MP_E, MP_H, MP_LEVELS, NU, mp_density,
                           mp_smooth_state, rel, two_patch)
 
 F32, F64 = torch.float32, torch.float64
-LEVELS = MP_LEVELS[:2]
+LEVELS = MP_LEVELS[1:]
 D_BEND = MP_E * MP_H ** 3 / 12.0 / (1 - NU ** 2)
 SHELL_PARAMS = {"E": MP_E, "nu": NU, "h": MP_H}
 
 
+@jax.jit
 def _jax_shell_energy(ctx, u, params):
+    # jitted, so that JAX's nested derivatives of it (the Nitsche flux,
+    # then the tangent block's Hessian) reuse its traced and transformed
+    # jaxpr across levels instead of re-tracing the energy each time
     from tigar_tpu.models.shell import svk_psi_surface
     return svk_psi_surface(ctx, u, params["E"], params["nu"], params["h"])
 

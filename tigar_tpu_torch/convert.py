@@ -21,7 +21,9 @@ sides' SideData, wq, nu, w_param, surfJ, params), ``mlsa_arrays``/
 ``elem_tangent_from_numpy`` an element-batch tangent,
 ``laplace_layouts_from_numpy`` the layouts of the f32 fast-path apply and
 ``point_contact_arrays``/``point_contact_from_numpy`` the state of a
-penalty contact (points, evaluation rows, weights, pair mask).
+penalty contact (points, evaluation rows, weights, pair mask) and
+``sumfac_assembler_arrays``/``sumfac_assembler_from_numpy`` a
+sum-factorized assembler (1D tables, windows, ctx leaves, scale).
 Tests use them to feed
 identical inputs to the JAX functions and to this package's kernels and
 twins, independent of either package's own preprocessing.
@@ -327,3 +329,74 @@ def point_contact_from_numpy(arrays, spline, device="cuda",
                     arrays["w_ctrl"], arrays["quad_w"], arrays["pair_mask"],
                     device, dtype, arrays["row_chunk"])
     return obj
+
+
+def sumfac_assembler_arrays(asm):
+    """numpy arrays of a sum-factorized assembler (this package's or
+    tigar_tpu's): per field its 1D tables ``tabs`` [[nel, nq, nders+1,
+    pp] per direction], gather windows ``idxs`` (int32, None for slide
+    directions), ``metas``, ``ncp_ds`` and ``nders``; ``offsets``, ``ndof``,
+    ``scale`` [NQ], the ctx leaves ``ctx`` {name: [NQ, ...] or None} and the
+    shell reference under shell_ref_a / _b / _ea when the ctx carries
+    one."""
+    ctx = {k: None if v is None else _np(v)
+           for k, v in asm.ctx._asdict().items() if k != "aux"}
+    out = {
+        "offsets": np.asarray(asm.offsets, dtype=np.int64),
+        "ndof": int(asm.ndof),
+        "scale": _np(asm.scale),
+        "ctx": ctx,
+        "tabs": [[_np(t) for t in tf] for tf in asm.tabs],
+        "idxs": [[None if i is None else _np(i).astype(INDEX_TYPE)
+                  for i in f] for f in asm.idxs],
+        "metas": [tuple(tuple(m) for m in f) for f in asm.metas],
+        "ncp_ds": [tuple(int(n) for n in f) for f in asm.ncp_ds],
+        "nders": [int(n) for n in asm.nders],
+    }
+    sref = (asm.ctx.aux or {}).get("shell_ref")
+    if sref is not None:
+        out.update(shell_ref_a=_np(sref.a), shell_ref_b=_np(sref.b),
+                   shell_ref_ea=_np(sref.ea))
+    return out
+
+
+def sumfac_assembler_from_numpy(arrays, device="cuda", dtype=torch.float64):
+    """This package's SumfacAssembler from ``sumfac_assembler_arrays``
+    output; consecutive fields with identical tables share one plan (one
+    K15/K16 launch)."""
+    from .ops.sumfac_forms import DevicePlan, SumfacAssembler
+    device = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a), dtype=dtype, device=device)
+
+    plans = []
+    for f, (tabs, idxs, metas, ncp_d, nders) in enumerate(zip(
+            arrays["tabs"], arrays["idxs"], arrays["metas"],
+            arrays["ncp_ds"], arrays["nders"])):
+        prev = f and (arrays["metas"][f - 1], arrays["ncp_ds"][f - 1],
+                      arrays["nders"][f - 1])
+        if f and prev == (metas, ncp_d, nders) and all(
+                np.array_equal(a, b) for a, b in zip(
+                    tabs, arrays["tabs"][f - 1])) and all(
+                (a is None and b is None) or (
+                    a is not None and b is not None
+                    and np.array_equal(a, b))
+                for a, b in zip(idxs, arrays["idxs"][f - 1])):
+            plans.append(plans[-1])
+            continue
+        plans.append(DevicePlan.from_tensors(
+            [t(x) for x in tabs],
+            [None if i is None else torch.as_tensor(
+                np.asarray(i, dtype=np.int64), device=device)
+             for i in idxs],
+            [tuple(m) for m in metas], tuple(ncp_d), int(nders)))
+    aux = None
+    if "shell_ref_a" in arrays:
+        aux = {"shell_ref": ShellReference(a=t(arrays["shell_ref_a"]),
+                                           b=t(arrays["shell_ref_b"]),
+                                           ea=t(arrays["shell_ref_ea"]))}
+    ctx = QP(**{k: t(v) for k, v in arrays["ctx"].items()}, aux=aux)
+    return SumfacAssembler(plans, arrays["offsets"], arrays["ndof"], ctx,
+                           t(arrays["scale"]))

@@ -742,6 +742,192 @@ torch::Tensor nitsche_iface_tangent(std::vector<torch::Tensor> side_a,
   return K;
 }
 
+namespace {
+
+// K15/K16's plan and column layout, checked: tabs [nel_d, nq, nders + 1,
+// pp_d] (dt), win [nel_d, pp_d] int32 for gather directions (an empty
+// tensor marks a slide direction: start/stride); returns the argument
+// struct with everything but the output columns filled in
+template <typename T>
+tigar::SumfacJetsArgs<T> jets_plan(const std::vector<torch::Tensor>& tabs,
+                                   const std::vector<torch::Tensor>& win,
+                                   bool inverse,
+                                   const std::vector<int64_t>& starts,
+                                   const std::vector<int64_t>& strides,
+                                   const std::vector<int64_t>& ncp,
+                                   int64_t nders, torch::ScalarType dt) {
+  const int64_t dim = (int64_t)tabs.size();
+  TORCH_CHECK(dim == 2 || dim == 3, "sum-factorized jets are 2D or 3D, got ",
+              dim, " tables");
+  TORCH_CHECK((int64_t)win.size() == dim && (int64_t)starts.size() == dim &&
+                  (int64_t)strides.size() == dim &&
+                  (int64_t)ncp.size() == dim,
+              "windows, starts, strides and ncp are needed per direction");
+  TORCH_CHECK(nders == 1 || nders == 2, "nders must be 1 or 2, got ", nders);
+  TORCH_CHECK(tabs[0].dim() == 4, "tables must be [nel, nq, nders + 1, pp]");
+  tigar::SumfacJetsArgs<T> a{};
+  a.dim = (int)dim;
+  a.nders = (int)nders;
+  a.nq = (int)tabs[0].size(1);
+  TORCH_CHECK(a.nq >= 1 && a.nq <= 16, "nq must be in 1..16, got ", a.nq);
+  int64_t npts = 1;
+  for (int64_t d = 0; d < 3; ++d) {
+    if (d >= dim) {
+      a.nel[d] = a.pp[d] = a.ncp[d] = a.stride[d] = 1;
+      continue;
+    }
+    TORCH_CHECK(tabs[d].dim() == 4, "tables must be [nel, nq, nders + 1, pp]");
+    const int64_t nel = tabs[d].size(0), pp = tabs[d].size(3);
+    TORCH_CHECK(pp >= 1 && pp <= 4, "degrees must be at most 3, got ",
+                pp - 1);
+    TORCH_CHECK(nel >= 1 && ncp[d] >= pp && ncp[d] < (int64_t(1) << 20),
+                "bad direction ", d, ": nel ", nel, ", ncp ", ncp[d]);
+    check(tabs[d], "table", dt, {nel, a.nq, nders + 1, pp});
+    a.nel[d] = (int)nel;
+    a.pp[d] = (int)pp;
+    a.ncp[d] = (int)ncp[d];
+    a.tab[d] = ptr<T>(tabs[d]);
+    if (win[d].numel() == 0) {
+      TORCH_CHECK(starts[d] >= 0 && strides[d] >= 1 &&
+                      starts[d] + strides[d] * (nel - 1) + pp <= ncp[d],
+                  "slide windows (start ", starts[d], ", stride ",
+                  strides[d], ") leave the ", ncp[d], " coefficients");
+      a.start[d] = (int)starts[d];
+      a.stride[d] = (int)strides[d];
+    } else if (inverse) {
+      check(win[d], "inverse windows", torch::kInt,
+            {ncp[d] + 1 + nel * pp});
+      a.inv[d] = win[d].data_ptr<int>();
+      a.stride[d] = 1;
+    } else {
+      check(win[d], "windows", torch::kInt, {nel, pp});
+      a.idx[d] = win[d].data_ptr<int>();
+      a.stride[d] = 1;
+    }
+    npts *= nel * a.nq;
+  }
+  TORCH_CHECK(npts < (int64_t(1) << 40), "too many points");
+  a.npts = npts;
+  return a;
+}
+
+// the coefficient columns: ncols columns at base + c col_stride + i
+// cp_stride inside a vector of n entries
+template <typename T>
+void jets_columns(tigar::SumfacJetsArgs<T>& a, int64_t n, int64_t base,
+                  int64_t ncols, int64_t col_stride, int64_t cp_stride,
+                  int64_t col0, int64_t M) {
+  const int64_t ncp_tot = (int64_t)a.ncp[0] * a.ncp[1] * a.ncp[2];
+  TORCH_CHECK(ncols >= 1 && col0 >= 0 && col0 + ncols <= M,
+              "columns ", col0, "..", col0 + ncols, " do not fit ", M);
+  TORCH_CHECK(base >= 0 && col_stride >= 0 && cp_stride >= 1 &&
+                  base + (ncols - 1) * col_stride +
+                          (ncp_tot - 1) * cp_stride < n,
+              "coefficient columns (base ", base, ", strides ", col_stride,
+              ", ", cp_stride, ") leave the vector of ", n, " entries");
+  a.base = base;
+  a.col_stride = col_stride;
+  a.cp_stride = cp_stride;
+  a.ncols = (int)ncols;
+  a.col0 = (int)col0;
+  a.M = (int)M;
+}
+
+}  // namespace
+
+void sumfac_jets(torch::Tensor W, std::vector<torch::Tensor> tabs,
+                 std::vector<torch::Tensor> win, std::vector<int64_t> starts,
+                 std::vector<int64_t> strides, std::vector<int64_t> ncp,
+                 int64_t nders, int64_t base, int64_t ncols,
+                 int64_t col_stride, int64_t cp_stride, torch::Tensor val,
+                 torch::Tensor g, std::optional<torch::Tensor> h,
+                 int64_t col0) {
+  const auto dt = W.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(W.dim() == 1 && val.dim() == 2, "W must be a vector and val "
+              "[npts, M]");
+  check(W, "W", dt, {W.size(0)});
+  const c10::cuda::CUDAGuard guard(W.device());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int64_t M = val.size(1);
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    auto a = jets_plan<T>(tabs, win, false, starts, strides, ncp, nders, dt);
+    jets_columns<T>(a, W.size(0), base, ncols, col_stride, cp_stride, col0,
+                    M);
+    check(val, "val", dt, {a.npts, M});
+    check(g, "g", dt, {a.npts, M, a.dim});
+    TORCH_CHECK(nders < 2 || h, "nders 2 needs h");
+    if (nders >= 2) check(*h, "h", dt, {a.npts, M, a.dim, a.dim});
+    err = tigar::sumfac_jets_launch<T>(a, ptr<T>(W), val.data_ptr<T>(),
+                                       g.data_ptr<T>(),
+                                       nders >= 2 ? h->data_ptr<T>() : nullptr,
+                                       stream);
+  } else {
+    using T = double;
+    auto a = jets_plan<T>(tabs, win, false, starts, strides, ncp, nders, dt);
+    jets_columns<T>(a, W.size(0), base, ncols, col_stride, cp_stride, col0,
+                    M);
+    check(val, "val", dt, {a.npts, M});
+    check(g, "g", dt, {a.npts, M, a.dim});
+    TORCH_CHECK(nders < 2 || h, "nders 2 needs h");
+    if (nders >= 2) check(*h, "h", dt, {a.npts, M, a.dim, a.dim});
+    err = tigar::sumfac_jets_launch<T>(a, ptr<T>(W), val.data_ptr<T>(),
+                                       g.data_ptr<T>(),
+                                       nders >= 2 ? h->data_ptr<T>() : nullptr,
+                                       stream);
+  }
+  check_launch(err, "sumfac_jets");
+}
+
+void sumfac_scatter_jets(torch::Tensor cval, torch::Tensor cg,
+                         std::optional<torch::Tensor> ch,
+                         std::vector<torch::Tensor> tabs,
+                         std::vector<torch::Tensor> inv,
+                         std::vector<int64_t> starts,
+                         std::vector<int64_t> strides,
+                         std::vector<int64_t> ncp, int64_t nders,
+                         int64_t col0, int64_t ncols, int64_t col_stride,
+                         int64_t cp_stride, torch::Tensor out,
+                         int64_t base) {
+  const auto dt = cval.scalar_type();
+  check_float(dt);
+  TORCH_CHECK(cval.dim() == 2 && out.dim() == 1, "cval must be [npts, M] "
+              "and out a vector");
+  check(out, "out", dt, {out.size(0)});
+  const c10::cuda::CUDAGuard guard(out.device());
+  auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  const int64_t M = cval.size(1);
+  cudaError_t err;
+  if (dt == torch::kFloat) {
+    using T = float;
+    auto a = jets_plan<T>(tabs, inv, true, starts, strides, ncp, nders, dt);
+    jets_columns<T>(a, out.size(0), base, ncols, col_stride, cp_stride, col0,
+                    M);
+    check(cval, "cval", dt, {a.npts, M});
+    check(cg, "cg", dt, {a.npts, M, a.dim});
+    TORCH_CHECK(nders < 2 || ch, "nders 2 needs ch");
+    if (nders >= 2) check(*ch, "ch", dt, {a.npts, M, a.dim, a.dim});
+    err = tigar::sumfac_scatter_jets_launch<T>(
+        a, ptr<T>(cval), ptr<T>(cg), nders >= 2 ? ptr<T>(*ch) : nullptr,
+        out.data_ptr<T>(), stream);
+  } else {
+    using T = double;
+    auto a = jets_plan<T>(tabs, inv, true, starts, strides, ncp, nders, dt);
+    jets_columns<T>(a, out.size(0), base, ncols, col_stride, cp_stride, col0,
+                    M);
+    check(cval, "cval", dt, {a.npts, M});
+    check(cg, "cg", dt, {a.npts, M, a.dim});
+    TORCH_CHECK(nders < 2 || ch, "nders 2 needs ch");
+    if (nders >= 2) check(*ch, "ch", dt, {a.npts, M, a.dim, a.dim});
+    err = tigar::sumfac_scatter_jets_launch<T>(
+        a, ptr<T>(cval), ptr<T>(cg), nders >= 2 ? ptr<T>(*ch) : nullptr,
+        out.data_ptr<T>(), stream);
+  }
+  check_launch(err, "sumfac_scatter_jets");
+}
+
 // the per-thread stack (local memory) the context reserves now, bytes
 int64_t stack_limit() {
   size_t v = 0;
@@ -782,6 +968,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K13: all-pairs penalty contact forces");
   m.def("contact_tangent", &contact_tangent,
         "K14: all-pairs penalty contact tangent action");
+  m.def("sumfac_jets", &sumfac_jets,
+        "K15: sum-factorized jets of coefficient columns");
+  m.def("sumfac_scatter_jets", &sumfac_scatter_jets,
+        "K16: transpose of K15 (jet cotangents to coefficients)");
   m.def("stencil_apply", &stencil_apply,
         "K3: stencil apply / residual / Jacobi sweep");
 }

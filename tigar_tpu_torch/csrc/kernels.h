@@ -191,4 +191,43 @@ cudaError_t contact_pairs_launch(int n, long long ld,
                                  const T* v, const T* w, double k,
                                  double r_max, T* out, cudaStream_t stream);
 
+// K15 / K16: one tensor-product field plan in dim = 2 or 3 directions and
+// where its coefficient columns sit.  Direction d: nel[d] elements, nq
+// points an element, pp[d] = p_d + 1 <= 4 functions an element, ncp[d]
+// coefficients (ncp[2] = 1 in 2D), tables tab[d] [nel][nq][nders + 1][pp]
+// (nders 1 or 2); windows start[d] + stride[d] e + a (idx[d] == nullptr)
+// or idx[d] [nel][pp]; K16 reads gather windows through inv[d]: [ncp + 1]
+// offsets, then the entries e pp + a of every coefficient.  Column c <
+// ncols of coefficient i = i_0 + ncp_0 (i_1 + ncp_1 i_2) sits at
+// base + c col_stride + i cp_stride of the coefficient vector; its jets are
+// column col0 + c of M of the npts points (grid (e_{D-1}, q_{D-1}, ...,
+// e_0, q_0), e_{D-1} slowest).
+template <typename T>
+struct SumfacJetsArgs {
+  int dim, nders, nq;
+  int nel[3], pp[3], ncp[3], start[3], stride[3];
+  const T* tab[3];
+  const int* idx[3];
+  const int* inv[3];
+  long long base, col_stride, cp_stride;
+  int ncols, col0, M;
+  long long npts;
+};
+
+// K15: val [npts][M], g [npts][M][dim], h [npts][M][dim][dim] (nders 2;
+// else unused) of the columns, each entry of columns col0..col0+ncols-1
+// written once.
+template <typename T>
+cudaError_t sumfac_jets_launch(const SumfacJetsArgs<T>& a, const T* W,
+                               T* val, T* g, T* h, cudaStream_t stream);
+
+// K16: the transpose: out[base + c col_stride + i cp_stride] = the jet
+// cotangents cval, cg, ch (layouts of K15) of column col0 + c pulled back
+// to coefficient i; every coefficient of the columns written once.
+template <typename T>
+cudaError_t sumfac_scatter_jets_launch(const SumfacJetsArgs<T>& a,
+                                       const T* cval, const T* cg,
+                                       const T* ch, T* out,
+                                       cudaStream_t stream);
+
 }  // namespace tigar

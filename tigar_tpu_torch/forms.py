@@ -10,7 +10,7 @@ operators are exact chain rules through the (rational) geometry map.
 
 The containers also serve batched code: their leaves may carry leading
 batch dimensions (element, quadrature point), which the shell kernels'
-plain versions use.  ``curl``, the ``pushforward_*`` operators,
+plain versions use; the pushforwards act on one point.  ``curl``,
 ``dmetric`` and ``christoffel`` are not ported yet.
 
 torch.func passes only tensors through its transforms, while a Jet or QP
@@ -191,6 +191,49 @@ class QP(NamedTuple):
             t3 = val[..., None, None] * d2w if val.dim() else val * d2w
             h = (u.h - t1 - t2 - t3) / w
         return Jet(val, g, h)
+
+    # ---- compatible-spline pushforwards (one point) -------------------------
+
+    def pushforward_RT(self, u):
+        """Div-conserving (Piola) pushforward of a parametric vector jet,
+        a PhysField with the exact Piola divergence (reference:
+        cartesianPushforwardRT, calculusUtils.py:320-336)."""
+        J = self.sqrtJ
+        val = self.DF @ u.val / J
+        div_exact = _trace(u.g) / J
+        grad = None
+        if self.d2F is not None:
+            # d_c val = (d2F[:,k,c] u_k + DF du_,c)/J - val dJ_c / J
+            dJ = self._dsqrtJ()
+            dval = (torch.einsum("kic,i->kc", self.d2F, u.val)
+                    + self.DF @ u.g) / J - val[:, None] * dJ[None, :] / J
+            grad = dval @ self.pinv
+        return PhysField(val, grad, div_exact)
+
+    def pushforward_N(self, u):
+        """Curl-conserving pushforward DF^{-T} u (co-dimension zero;
+        reference: cartesianPushforwardN, calculusUtils.py:307-318)."""
+        from .ops.smallmat import inv_small
+        DFinvT = inv_small(self.DF.T)
+        val = DFinvT @ u.val
+        grad = None
+        if self.d2F is not None:
+            dDFT = self.d2F.permute(1, 0, 2)
+            dval = (DFinvT @ u.g - torch.einsum(
+                "ij,jkc,kl,l->ic", DFinvT, dDFT, DFinvT, u.val))
+            grad = dval @ self.pinv
+        return PhysField(val, grad)
+
+    def pushforward_W(self, phi):
+        """Mass-conserving pushforward phi / sqrt(det g) (reference:
+        cartesianPushforwardW, calculusUtils.py:338-346)."""
+        return (phi.val if isinstance(phi, Jet) else phi) / self.sqrtJ
+
+    def _dsqrtJ(self):
+        """Parametric gradient of sqrt(det g), from d2F."""
+        dg = torch.einsum("kce,kb->cbe", self.d2F, self.DF) + \
+            torch.einsum("kc,kbe->cbe", self.DF, self.d2F)
+        return 0.5 * self.sqrtJ * torch.einsum("cb,cbe->e", self.ginv, dg)
 
 
 def taylor_eval(val, g, h, delta):

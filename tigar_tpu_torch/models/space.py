@@ -7,7 +7,8 @@ not build an FE mesh or sparse extraction matrices; it only fixes the list
 of scalar field bases over one control mesh, the global DoF layout (fields
 concatenated, field offsets), and the homogeneous Dirichlet DoF set.
 
-Host-side numpy copy (SplineSpace, EqualOrderSpline) for the PyTorch port.
+Host-side numpy copy (SplineSpace, EqualOrderSpline, FieldListSpline) for
+the PyTorch port.
 """
 
 from __future__ import annotations
@@ -91,4 +92,12 @@ class EqualOrderSpline(SplineSpace):
         super().__init__(control_mesh, [basis] * int(nfields))
 
     def get_scalar_spline(self, field=0):
+        return self.fields[field]
+
+
+class FieldListSpline(SplineSpace):
+    """Explicit per-field scalar bases (reference: common.py:1948-1970).
+    All fields must share the control mesh's Bezier-element grid."""
+
+    def get_field_spline(self, field):
         return self.fields[field]

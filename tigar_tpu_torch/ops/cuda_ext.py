@@ -1,9 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources live in ``tigar_tpu_torch/csrc``: eleven ``.cu`` files with
+The sources live in ``tigar_tpu_torch/csrc``: twelve ``.cu`` files with
 plain C++ launchers (no PyTorch headers) and one binding file,
 ``bindings.cpp``, the only one that includes ``torch/extension.h``.
-``load()`` compiles all twelve (ninja runs the compilers in parallel) with
+``load()`` compiles all thirteen (ninja runs the compilers in parallel) with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` on first use, into
 ``build/tigar_kernels/`` under the repository root, and caches the module
 for the process.  Nothing is built at import time.
@@ -22,7 +22,8 @@ KERNELS = ("shell_residual", "tangent_stencil", "stencil_apply",
            "shell_iface_tangent", "nitsche_iface_residual",
            "nitsche_iface_tangent", "tangent_elements", "elem_tangent_apply",
            "elem_tangent_diagonal", "ell_spmv", "laplace_apply",
-           "contact_residual", "contact_tangent")
+           "contact_residual", "contact_tangent", "sumfac_jets",
+           "sumfac_scatter_jets")
 
 _launches = {k: 0 for k in KERNELS}
 _ext = None
@@ -33,7 +34,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 SOURCES = ("bindings.cpp", "shell_residual.cu", "tangent_stencil.cu",
            "stencil_apply.cu", "sumfac_apply.cu", "iface_block.cu",
            "shell_interface.cu", "shell_nitsche.cu", "elem_tangent.cu",
-           "ell_spmv.cu", "laplace_apply.cu", "contact_pairs.cu")
+           "ell_spmv.cu", "laplace_apply.cu", "contact_pairs.cu",
+           "sumfac_jets.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                          "tigar_kernels")
 
@@ -54,6 +56,12 @@ def load(verbose=False):
             build_directory=BUILD_DIR,
             extra_cflags=["-O3"],
             extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+            # A compiler that links libstdc++ statically would export that
+            # copy's symbols, which then mix with the process's shared
+            # libstdc++: formatting a number in a check message (its
+            # num_put facet) ended the process (ROADMAP C3).  Keep any
+            # static library's symbols inside the extension.
+            extra_ldflags=["-Wl,--exclude-libs,ALL"],
             verbose=verbose)
         build_seconds = time.time() - t0
     return _ext
