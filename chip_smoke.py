@@ -32,7 +32,11 @@ Phases, each fatal on failure (nothing is caught):
      kernel's device time per launch by the profiler (taken after phase
      5), and its bound (bytes over 3.35 TB/s or operations over the peak
      rate of the type, the larger); K4 also at a small periodic 3D and a
-     small 2D p=3 case;
+     small 2D p=3 case; the library yardsticks of K3's apply mode (f32,
+     130^2) and K4 (f32, 96^3): the same BC'd operator as one f32
+     torch.sparse CSR matrix, CUDA events of the call alone and, later,
+     its profiler device time (recorded only where sessions of 10 and of
+     all the timed calls record the same whole number of events a call);
   3. the shell main path: one production step after a warm-up (best of
      3), then the full solve to rtol=1e-10 with every launch count reset
      just before it and read just after;
@@ -58,7 +62,10 @@ Phases, each fatal on failure (nothing is caught):
      build_quad_degree=2, rebuild_rel=0.1.  K1 over the concatenated
      patches, K2 on each patch's element range (f32 and f64), K3's patch
      mode (every mode, f32 and f64), K5-K7 against their plain versions at
-     these shapes; the best of 3 warm f32 steps; the full solve
+     these shapes (K5 timed as the call alone, accumulating into one
+     buffer; torch.mv on the pre-gathered vector its yardstick, CUDA
+     events and profiler device time); the best of 3 warm f32 steps; the
+     full solve
      (start_polish, as the bench) with every launch count reset just
      before it and read just after; the
      floor certificate (the final f64 residual within 3x of the CPU plain
@@ -101,11 +108,13 @@ Phases, each fatal on failure (nothing is caught):
  11. the generic form path (FEniCS-like densities through ExtractedSpline)
      on tests/test_refinement.py's Poisson at the size of
      tigar_tpu/ops/fastpath.py's measurement: p=2, 256^2 elements, 66,564
-     DoFs, quadrature degree 4.  K12 against its plain version (2D p=2
-     256^2, 2D p=3 32^2, 3D p=2 16^3; f32, 1e-5 of the largest entry: f32
+     DoFs, quadrature degree 4.  K12 on the element matrices that
+     make_laplace_operator builds, against its plain version (2D p=2
+     256^2, 2D p=3 32^2, 3D p=2 16^3; f32, 1e-6 of the largest entry: f32
      atomics) and against the f64 AD tangent action (2e-6, as
-     tests/test_fastpath.py), the f32 torch.sparse CSR product as its
-     library yardstick; the f64 solve with the default options (Jacobi CG
+     tests/test_fastpath.py), its bound beside the JAX layouts' bound, the
+     f32 torch.sparse CSR product as its library yardstick (CUDA events
+     and profiler device time); the f64 solve with the default options (Jacobi CG
      of the AD tangent action); refine_solve with K12 and f32 Jacobi
      inside (120 inner iterations) to rel < 1e-12 and within 1e-8 of it,
      with every launch count reset just before it and read just after;
@@ -284,14 +293,53 @@ def device_ms(fn, reps, match, per_call=1):
     return sum(e.self_device_time_total for e in ev) / 1e3 / reps, recorded
 
 
+def library_device_ms(fn, reps):
+    """Device time per call of every kernel, copy and memset that ``fn``
+    runs (torch.profiler, device-side events), and the events recorded per
+    call in sessions of 10 and of ``reps`` calls: the time is None unless
+    both record the same whole number of events a call (the library's own
+    launches, whatever their names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+
+    def session(n):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        return (sum(e.count for e in ev) / n,
+                sum(e.self_device_time_total for e in ev) / 1e3 / n)
+
+    few, _ = session(10)
+    got, t = session(reps)
+    if few == 0 or few != int(few) or got != few:
+        return None, got, few
+    return t, got, few
+
+
 def kernel_device_times(rec):
-    """Device time per launch of the timed kernel phases (torch.profiler),
-    taken after the main paths so that no profiler session precedes their
-    timing."""
+    """Device time per launch of the timed kernel phases, and per call of
+    their library yardsticks (torch.profiler), taken after the main paths
+    so that no profiler session precedes their timing."""
     for phases in rec.values():
         for p in phases:
             if "probe" in p:
                 probe_device_time(p)
+            if "library_probe" in p:
+                fn, reps = p.pop("library_probe")
+                p["library_dev_ms"], got, few = library_device_ms(fn, reps)
+                dev = (f"not measured (sessions of 10 and {reps} calls "
+                       f"recorded {few:g} and {got:g} events a call)"
+                       if p["library_dev_ms"] is None
+                       else f"{p['library_dev_ms']:.4f} ms ({got:g} events "
+                            f"a call)")
+                say(f"{p['name']}: library device time per call {dev}")
 
 
 def probe_device_time(p):
@@ -319,12 +367,14 @@ def nbytes(*ts):
 
 
 def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
-            work=None, per_call=1):
+            work=None, per_call=1, timed=None):
     """Kernel against twin on the same inputs: errors, times, the gate.
     ``match`` names the kernel for the profiler's device time (taken later
     by ``kernel_device_times``), which a call launches ``per_call``
     times; ``work`` = (bytes, flops,
-    dtype) gives its bound; ``twin_reps`` 0 leaves the twin untimed."""
+    dtype) gives its bound; ``twin_reps`` 0 leaves the twin untimed;
+    ``timed`` (default ``kernel``) is the call that the CUDA events and
+    the profiler time."""
     yk = kernel()
     yt = twin()
     torch.cuda.synchronize()
@@ -334,7 +384,8 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
                          f"wrong shape {tuple(yk.shape)}")
     abs_err = float((yk - yt).abs().max())
     rel = abs_err / float(yt.abs().max())
-    ms = cuda_ms(kernel, reps)
+    timed = kernel if timed is None else timed
+    ms = cuda_ms(timed, reps)
     plain_ms = cuda_ms(twin, twin_reps) if twin_reps else None
     twin_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
     say(f"phase {name}: max rel err {rel:.3e} (tol {tol:g}), max abs err "
@@ -343,12 +394,53 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
         raise SystemExit(f"phase {name} FAILED: rel err {rel:.3e} > {tol:g}")
     entry = dict(name=name, rel=rel, abs=abs_err, ms=ms, plain_ms=plain_ms)
     if match is not None:
-        entry["probe"] = (kernel, reps, match, per_call)
+        entry["probe"] = (timed, reps, match, per_call)
     if work is not None:
         entry["bound_ms"], entry["bound_by"] = bound(*work)
         say(f"    bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
             f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP)")
     record.append(entry)
+
+
+def csr_f32(keep, vals, cols):
+    """One f32 torch.sparse CSR matrix from row-major candidates: ``keep``,
+    ``vals`` and ``cols`` [n, k], each row's columns ascending."""
+    n = keep.shape[0]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=keep.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), cols[keep].to(torch.int32),
+        vals[keep].to(torch.float32), (n, n), check_invariants=True)
+
+
+def stencil_csr(st, mask):
+    """K3's apply mode with a mask, mask A (mask x) + (1 - mask) x, as one
+    f32 CSR matrix: row (f, iy, ix) holds column (g, iy + oy, ix + ox) of
+    S[f, g, oy, ox, iy, ix] (zero padding, as K3), masked-out entries
+    dropped, 1 - mask added on the diagonal."""
+    S = st.S.to(torch.float64)
+    nf, (ny, nx), (py, px) = st.nf, st.grid_shape, st.degrees
+    n, dev = ny * nx, S.device
+    oy = torch.arange(-py, py + 1, device=dev)
+    ox = torch.arange(-px, px + 1, device=dev)
+    jy = torch.arange(ny, device=dev)[:, None, None, None] + oy[:, None]
+    jx = torch.arange(nx, device=dev)[None, :, None, None] + ox[None, :]
+    ok = (jy >= 0) & (jy < ny) & (jx >= 0) & (jx < nx)  # [ny, nx, ky, kx]
+    pos = (jy * nx + jx).clamp(0, n - 1)
+    g = torch.arange(nf, device=dev)[:, None, None]
+    cols = g * n + pos[:, :, None]                       # [ny, nx, g, ky, kx]
+    m = mask.to(torch.float64)
+    vals = S.permute(0, 4, 5, 1, 2, 3) * m.view(nf, ny, nx, 1, 1, 1) \
+        * m[cols][None]                                  # [f, ny, nx, ...]
+    diag = torch.zeros_like(vals, dtype=torch.bool)
+    for f in range(nf):
+        diag[f, :, :, f, py, px] = True
+    vals = vals + diag * (1.0 - m).view(nf, ny, nx, 1, 1, 1)
+    keep = ok[None, :, :, None] & ((vals != 0) | diag)
+    k = nf * (2 * py + 1) * (2 * px + 1)
+    return csr_f32(keep.reshape(nf * n, k), vals.reshape(nf * n, k),
+                   cols[None].expand(nf, -1, -1, -1, -1, -1)
+                   .reshape(nf * n, k))
 
 
 def shell_certificate(ns, Usol, rel64, dU_rel, label="shell"):
@@ -424,11 +516,13 @@ def kernel_phases(ns):
             dinv = 1.0 / (m * st.diagonal() + (1.0 - m))
             for mode in ("apply", "residual", "jacobi"):
                 kw = dict(mask=m, b=b, dinv=dinv, omega=0.7, mode=mode)
-                timed = (mode, tag, lname) == ("jacobi", "f32", "fine")
-                # the Jacobi sweep reads S, x, mask, b, dinv and writes y;
-                # 225 multiply-adds per grid point
-                work = (nbytes(st.S, x, m, b, dinv, x),
-                        450.0 * n / 3, dt) if timed else None
+                timed = (tag, lname) == ("f32", "fine") and mode != \
+                    "residual"
+                # the Jacobi sweep reads S, x, mask, b, dinv and writes y,
+                # the apply S, x, mask; 225 multiply-adds per grid point
+                vecs = (x, m, b, dinv, x) if mode == "jacobi" else (x, m, x)
+                work = (nbytes(st.S, *vecs), 450.0 * n / 3, dt) \
+                    if timed else None
                 compare(f"K3 stencil_apply {mode} {tag} {lname} "
                         f"grid={st.grid_shape}",
                         lambda s=st, kw=kw, x=x: stencil_apply(s, x, **kw),
@@ -437,7 +531,23 @@ def kernel_phases(ns):
                         tol, 50, 10, rec["stencil_apply"],
                         match="stencil_apply_kernel" if timed else None,
                         work=work)
+                if timed and mode == "apply":
+                    stencil_library(st, m, x, rec["stencil_apply"][-1])
     return rec
+
+
+def stencil_library(st, m, x, entry):
+    """The library yardstick of K3's apply mode: the same BC'd operator as
+    one f32 torch.sparse CSR matrix applied with ``@`` (CUDA events of the
+    call alone; the profiler's device time later)."""
+    from tigar_tpu_torch.ops.stencil import stencil_apply
+    A = stencil_csr(st, m)
+    err = rel_diff(torch.mv(A, x), stencil_apply(st, x, mask=m))
+    entry["library_ms"] = cuda_ms(lambda A=A, x=x: torch.mv(A, x), 50)
+    entry["library_probe"] = (lambda A=A, x=x: torch.mv(A, x), 50)
+    say(f"    library yardstick torch.sparse CSR f32 @ x ({A._nnz()} "
+        f"entries, {st.ndof} rows): {entry['library_ms']:.4f} ms, rel diff "
+        f"{err:.1e}")
 
 
 # -- the Poisson path ---------------------------------------------------------
@@ -522,6 +632,66 @@ def sumfac_flops(data):
     return float(nel * (2 * 2 * ma + (dim + 1) * Q ** dim))
 
 
+def sumfac_csr(data, mask):
+    """K4's identity-geometry stiffness apply (ck = 1, cm = 0) with a mask
+    as one f32 CSR matrix: A = sum_c kron_d T_d^(c), T_d^(c) the 1D
+    stiffness matrix of direction d when d = c, else its mass matrix;
+    mask A mask + diag(1 - mask), masked-out entries dropped.  Rows in
+    K4's order (direction 0 fastest); open knot vectors."""
+    dev, dim = mask.device, data.dim
+    wins = data.windows()
+    shape = tuple(data.ncp_d[::-1])
+    n_all = int(np.prod(shape))
+    stride = [int(np.prod(data.ncp_d[:d])) for d in range(dim)]
+    bands, oks, offs = [], [], []
+    for d in range(dim):
+        n, p = data.ncp_d[d], data.degrees[d]
+        o = torch.arange(-p, p + 1, device=dev)
+        j = torch.arange(n, device=dev)[:, None] + o
+        ok = (j >= 0) & (j < n)
+        jc = j.clamp(0, n - 1)
+        w = data.w[d].to(torch.float64)
+        idx = (wins[d][:, :, None] * n + wins[d][:, None, :]).reshape(-1)
+        pair = []
+        for X in (data.B[d], data.D[d]):
+            X = X.to(torch.float64)
+            T = torch.zeros(n * n, dtype=torch.float64, device=dev)
+            T.index_add_(0, idx, torch.einsum("eq,eqa,eqb->eab", w, X,
+                                              X).reshape(-1))
+            pair.append(torch.where(ok, T.view(n, n)[torch.arange(
+                n, device=dev)[:, None], jc], 0.0))
+        # the band [n_d, 2 p_d + 1] broadcast over (i_{dim-1}..i_0,
+        # o_{dim-1}..o_0)
+        view = [1] * (2 * dim)
+        view[dim - 1 - d], view[2 * dim - 1 - d] = n, 2 * p + 1
+        bands.append([b.view(view) for b in pair])    # (mass, stiffness)
+        oks.append(ok.view(view))
+        ov = [1] * (2 * dim)
+        ov[2 * dim - 1 - d] = 2 * p + 1
+        offs.append((o * stride[d]).view(ov))
+    vals = 0.0
+    for c in range(dim):
+        term = 1.0
+        for d in range(dim):
+            term = term * bands[d][1 if d == c else 0]
+        vals = vals + term
+    ok = oks[0]
+    off = offs[0]
+    for d in range(1, dim):
+        ok, off = ok & oks[d], off + offs[d]
+    k = int(np.prod([2 * p + 1 for p in data.degrees]))
+    vals = vals.expand(shape + vals.shape[dim:]).reshape(n_all, k)
+    ok = ok.expand(shape + ok.shape[dim:]).reshape(n_all, k)
+    rows = torch.arange(n_all, device=dev)[:, None]
+    cols = (rows + off.reshape(1, k)).clamp(0, n_all - 1)
+    m = mask.to(torch.float64)
+    vals = vals * m[:, None] * m[cols]
+    vals[:, k // 2] += 1.0 - m
+    keep = ok & (vals != 0)
+    keep[:, k // 2] = True
+    return csr_f32(keep, vals, cols)
+
+
 def sumfac_phases(device):
     """K4 against its plain version: at the Poisson path's fine level in
     f64 and f32, and once at a small periodic 3D and a small 2D p=3
@@ -544,6 +714,19 @@ def sumfac_phases(device):
                 lambda d=data, w=W, m=m: sumfac_apply_ref(d, w, 1.0, 0.0, m),
                 TOL[tag], 50, 3, rec, match="sumfac", work=work,
                 per_call=2)
+        if dt == torch.float32:
+            # the library yardstick: the same BC'd operator as one f32
+            # torch.sparse CSR matrix applied with ``@``
+            A = sumfac_csr(data, m)
+            err = rel_diff(torch.mv(A, W), sumfac_apply(data, W, 1.0, 0.0,
+                                                        m))
+            rec[-1]["library_ms"] = cuda_ms(lambda A=A, x=W: torch.mv(A, x),
+                                            50)
+            rec[-1]["library_probe"] = (lambda A=A, x=W: torch.mv(A, x), 50)
+            say(f"    library yardstick torch.sparse CSR f32 @ W "
+                f"({A._nnz()} entries): {rec[-1]['library_ms']:.4f} ms, "
+                f"rel diff {err:.1e}")
+
     small = (("periodic 3D nel=8 p=2", 3, 2, 8, True),
              ("2D nel=64 p=3", 2, 3, 64, False))
     for label, dim, p, nel, per in small:
@@ -955,8 +1138,10 @@ def iface_kernel_phases(ns, cpl, rec):
                 work=(nbytes(us, pos_a, pos_b, c.wq, *tabs) + m * m * es,
                       54.0 * 54 * 36 * nq, dt))
 
-    # K5 on the fine operator's interface block in both types; the
-    # library yardstick is torch.mv on the same block (the product alone)
+    # K5 on the fine operator's interface block in both types: the kernel
+    # call alone is timed, accumulating into one buffer (the comparison
+    # starts from a copy of ``base``); the library yardstick is torch.mv
+    # on the same block (the product alone, on a pre-gathered vector)
     op32 = ns._build(ns.asm_b32, U64.float())
     op64 = ns._build(ns.asm_b64, U64)
     g = torch.Generator().manual_seed(3)
@@ -969,6 +1154,7 @@ def iface_kernel_phases(ns, cpl, rec):
                            dtype=torch.float64).to(B.device, dt)
         mk = ns.mask64.to(dt)
         buf_k, buf_t = torch.empty_like(base), torch.empty_like(base)
+        acc = base.clone()
         tol = TOL["f64"] if dt == torch.float64 else 1e-6
         # reads B, idx, mask and v at the support, reads and writes out
         # there; 2 m^2 operations
@@ -977,14 +1163,17 @@ def iface_kernel_phases(ns, cpl, rec):
                     B, idx, v, o.copy_(b), mk, 1.0),
                 lambda B=B, v=v, b=base, o=buf_t, mk=mk:
                 iface_block_apply_ref(B, idx, v, o.copy_(b), mk, 1.0),
-                tol, 200, 20, rec["iface_block"], match="iface_block_kernel",
+                tol, 200, 20, rec["iface_block"], match="tigar::iface_",
                 work=(nbytes(B, idx) + 5 * m * B.element_size(),
-                      2.0 * m * m, dt))
+                      2.0 * m * m, dt),
+                timed=lambda B=B, v=v, o=acc, mk=mk: iface_block_apply(
+                    B, idx, v, o, mk, 1.0))
         vs = v[il]
-        rec["iface_block"][-1]["library_ms"] = cuda_ms(
-            lambda B=B, vs=vs: torch.mv(B, vs), 200)
+        lib = rec["iface_block"][-1]
+        lib["library_ms"] = cuda_ms(lambda B=B, vs=vs: torch.mv(B, vs), 200)
+        lib["library_probe"] = (lambda B=B, vs=vs: torch.mv(B, vs), 200)
         say(f"    library yardstick torch.mv(K, v[idx]) {tag}: "
-            f"{rec['iface_block'][-1]['library_ms']:.4f} ms")
+            f"{lib['library_ms']:.4f} ms")
 
     # K3 reading and writing each patch in place, every mode, f32 (the
     # V-cycle) and f64 (the polish operator), at the operators' own
@@ -1010,8 +1199,8 @@ def iface_kernel_phases(ns, cpl, rec):
 
 def two_patch_main_path(ns, cpl, sizes, setup_s):
     """The best of 3 warm f32 steps, then the full solve with every launch
-    count reset just before it and read just after: its diagnostics and
-    launch counts."""
+    count reset just before it and read just after: its diagnostics,
+    launch counts and times (step ms, solve s, steps)."""
     from tigar_tpu_torch.ops import cuda_ext
     ndof = ns.spline.ndof
     U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
@@ -1046,7 +1235,8 @@ def two_patch_main_path(ns, cpl, sizes, setup_s):
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise SystemExit(f"two-patch main path never launched {missing}")
-    return Usol, rel64, dU_rel, launches
+    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps)
+    return Usol, rel64, dU_rel, launches, times
 
 
 def two_patch_certificate(ns, cpl, Usol, rel64, dU_rel,
@@ -1178,7 +1368,8 @@ def nitsche_kernel_phases(ns, rec):
 def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
     """The best of 3 warm f32 steps, then the full solve with the f32
     phase first (as bench.py's Nitsche point), every launch count reset
-    just before it and read just after."""
+    just before it and read just after; returns as
+    ``two_patch_main_path``."""
     from tigar_tpu_torch.ops import cuda_ext
     ndof = ns.spline.ndof
     U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
@@ -1219,7 +1410,8 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
     if missing:
         raise SystemExit(f"two-patch Nitsche main path never launched "
                          f"{missing}")
-    return Usol, rel64, dU_rel, launches
+    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps)
+    return Usol, rel64, dU_rel, launches, times
 
 
 # -- the SANewton path: element tangents and smoothed aggregation ------------
@@ -1454,7 +1646,7 @@ def sa_reference(device):
 # dense P refuses 256^2: ndof x m > 2e8)
 GP_P, GP_NEL, GP_NEL2 = 2, 256, 128
 GP_REFINE_ITERS = 120          # inner f32 CG iterations a sweep
-GP_TOL = {"k12": 1e-5, "k12_ad": 2e-6, "solution": 1e-8, "ref": 1e-10}
+GP_TOL = {"k12": 1e-6, "k12_ad": 2e-6, "solution": 1e-8, "ref": 1e-10}
 
 
 def gp_spline(nel, device, p=GP_P, dim=2):
@@ -1506,8 +1698,9 @@ def rel_diff(a, b):
 
 def fastpath_kernel_phases(sp, rec):
     """K12 against its plain version at the path's shapes (2D p=2 256^2)
-    and at 2D p=3 32^2 and 3D p=2 16^3, and against the f64 AD tangent
-    action; the library yardstick, at each shape, is the same BC'd
+    and at 2D p=3 32^2 and 3D p=2 16^3, on the element matrices that
+    ``make_laplace_operator`` builds, and the operator against the f64 AD
+    tangent action; the library yardstick, at each shape, is the same BC'd
     operator as one f32 torch.sparse CSR matrix applied with ``@``."""
     from tigar_tpu_torch.ops import fastpath
     rec.setdefault("laplace_apply", [])
@@ -1517,24 +1710,32 @@ def fastpath_kernel_phases(sp, rec):
                      ("2D p=3 nel=32", gp_spline(32, dev, p=3)),
                      ("3D p=2 nel=16", gp_spline(16, dev, dim=3))):
         asm = s._assembler("dx")
-        A1, A2 = fastpath.laplace_layouts(asm)
+        Ke = fastpath.laplace_element_matrices(asm)
         connT = asm.conns[0].t().contiguous()
+        nel, nq, nen, d = asm.dNs[0].shape
         m32 = s.mask.float()
         W = torch.randn(s.ndof, generator=g, dtype=torch.float64).to(dev)
         W32 = W.float()
-        # reads A1, A2, connT, the mask and W, writes r; 2 flops a layout
-        # entry in each contraction
-        work = (nbytes(A1, A2, connT, m32, W32, W32), 4.0 * A1.numel(),
+        # reads Ke, connT, the mask and W, writes r; 2 nen^2 flops an
+        # element.  The JAX layouts' bound, for the design this replaced:
+        # 2 nen nq d floats an element in place of Ke
+        work = (nbytes(Ke, connT, m32, W32, W32), 2.0 * nen * nen * nel,
                 torch.float32)
-        compare(f"K12 laplace_apply f32 {label} nel={asm.nel} "
-                f"rows={A1.shape[0]}",
-                lambda a=(A1, A2, connT, m32, W32): fastpath.laplace_apply(*a),
-                lambda a=(A1, A2, connT, m32, W32):
-                fastpath.laplace_apply_ref(*a),
+        lay_bytes = 2 * nen * nq * d * nel * 4 + nbytes(connT, m32, W32, W32)
+        compare(f"K12 laplace_apply f32 {label} nel={nel} "
+                f"nen={nen} Ke rows={Ke.shape[0]}",
+                lambda a=(Ke, connT, m32, W32):
+                fastpath.laplace_apply_elem(*a),
+                lambda a=(Ke, connT, m32, W32):
+                fastpath.laplace_apply_elem_ref(*a),
                 GP_TOL["k12"], 50, 5, rec["laplace_apply"],
                 match="laplace_", work=work, per_call=2)
+        lay_ms = bound(lay_bytes, 4.0 * nen * nq * d * nel, torch.float32)[0]
+        rec["laplace_apply"][-1]["layouts_bound_ms"] = lay_ms
+        say(f"    the JAX layouts' bound (the design this replaced): "
+            f"{lay_ms:.4f} ms ({lay_bytes / 1e6:.2f} MB)")
         ref = s.tangent_action(gp_a, torch.zeros_like(W), W)
-        out = fastpath.laplace_apply(A1, A2, connT, s.mask, W)
+        out = fastpath.make_laplace_operator(asm, s.mask)(W)
         ad = float((out - ref).abs().max() / ref.abs().max())
         say(f"    K12 against the f64 AD tangent action ({label}): max "
             f"|diff| / max |ref| {ad:.3e} (bound {GP_TOL['k12_ad']:g})")
@@ -1542,13 +1743,13 @@ def fastpath_kernel_phases(sp, rec):
             raise SystemExit(f"K12 against the AD tangent action FAILED "
                              f"({label})")
         A = s.assemble_sparse(gp_a).to(torch.float32).to_sparse_csr()
-        yk = fastpath.laplace_apply(A1, A2, connT, m32, W32)
+        yk = fastpath.laplace_apply_elem(Ke, connT, m32, W32)
         lib_err = rel_diff(torch.mv(A, W32), yk)
-        rec["laplace_apply"][-1]["library_ms"] = cuda_ms(
-            lambda A=A, x=W32: torch.mv(A, x), 50)
+        lib = rec["laplace_apply"][-1]
+        lib["library_ms"] = cuda_ms(lambda A=A, x=W32: torch.mv(A, x), 50)
+        lib["library_probe"] = (lambda A=A, x=W32: torch.mv(A, x), 50)
         say(f"    library yardstick torch.sparse CSR f32 @ W ({label}, "
-            f"{A._nnz()} entries): "
-            f"{rec['laplace_apply'][-1]['library_ms']:.4f} ms, rel diff "
+            f"{A._nnz()} entries): {lib['library_ms']:.4f} ms, rel diff "
             f"{lib_err:.1e}")
 
 
@@ -2382,8 +2583,8 @@ def main():
     say(f"two-patch setup: {setup_tp:.2f} s; ndof={ns_tp.spline.ndof}, "
         f"levels={sizes}, pd={cpl.penalty:g}, pr={cpl.penalty_rot:g}")
     iface_kernel_phases(ns_tp, cpl, rec)
-    Utp, rel_tp, dU_tp, l_tp = two_patch_main_path(ns_tp, cpl, sizes,
-                                                   setup_tp)
+    Utp, rel_tp, dU_tp, l_tp, _ = two_patch_main_path(ns_tp, cpl, sizes,
+                                                      setup_tp)
     two_patch_certificate(ns_tp, cpl, Utp, rel_tp, dU_tp)
     tp_kernels = ("iface_block", "shell_iface_residual",
                   "shell_iface_tangent")
@@ -2403,7 +2604,7 @@ def main():
         f"beta_d={cpl_nit.params['beta_d']:g}, "
         f"beta_r={cpl_nit.params['beta_r']:g}")
     nitsche_kernel_phases(ns_nit, rec)
-    Unit, rel_nit, dU_nit, l_nit = two_patch_nitsche_main_path(
+    Unit, rel_nit, dU_nit, l_nit, _ = two_patch_nitsche_main_path(
         ns_nit, cpl_nit, sizes, setup_nit)
     two_patch_certificate(ns_nit, cpl_nit, Unit, rel_nit, dU_nit,
                           TP_NITSCHE_FLOOR_REL, "two-patch Nitsche")
@@ -2573,6 +2774,7 @@ def main():
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed.get("library_ms"),
             "device_ms": timed.get("dev_ms"),
+            "library_device_ms": timed.get("library_dev_ms"),
             "launches_by_path": {p: c[name] for p, c in by_path.items()
                                  if name in c}})
     print(json.dumps({"kernels": kernels}), flush=True)

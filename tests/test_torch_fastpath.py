@@ -1,11 +1,13 @@
-"""tigar_tpu_torch's f32 fast-path apply (B5: layouts and the plain
-version of kernel K12), mixed-precision refinement with an f32
-preconditioner and warm starts, against tigar_tpu's on the same inputs
-(CPU).
+"""tigar_tpu_torch's f32 fast-path apply (B5: layouts, the element
+matrices and the plain version of kernel K12), mixed-precision
+refinement with an f32 preconditioner and warm starts, against
+tigar_tpu's on the same inputs (CPU).
 
 Tolerances: layouts 1e-6 (float32); the plain B5 apply on identical
-layouts 1e-6 of the largest entry (float32, summed in another order), and
-2e-6 against the f64 AD tangent action (tests/test_fastpath.py:34);
+layouts, and K12's element-matrix form built from them, 1e-6 of the
+largest entry (float32, summed in another order); the element matrices
+in f64 against the generic assembler's 1e-12; the operator 2e-6 against
+the f64 AD tangent action (tests/test_fastpath.py:34);
 refinement on identical f32/f64 operators: the same sweep count and x
 within 1e-12 relative; refine_solve with M_f32 as tests/test_refinement.py
 (nel=16): rel < 1e-12, within 1e-10 of the direct solve, the same sweeps
@@ -64,6 +66,43 @@ def test_plain_apply_matches_jax_on_identical_layouts(pair, wtype):
     yt = tfp.laplace_apply(A1, A2, cT, ts.mask, torch.as_tensor(W))
     assert str(yt.dtype).endswith(str(np.asarray(yj).dtype))
     assert rel(yt, yj) <= 1e-6
+
+
+def test_element_matrix_apply_matches_jax_on_identical_layouts(pair):
+    """K12's form: the element matrices built from the JAX package's f32
+    layouts, applied by ``laplace_apply_elem_ref``, against JAX's
+    ``_laplace_apply`` on those layouts (1e-6 of the largest entry)."""
+    js, ts = pair
+    ja = js._assembler("dx")
+    A1j, A2j = jfp.laplace_layouts(ja)
+    connT = np.asarray(ja.conns[0]).T
+    A1, A2, cT = convert.laplace_layouts_from_numpy(
+        np.asarray(A1j), np.asarray(A2j), connT, "cpu")
+    Ke = tfp.laplace_element_matrices_from_layouts(A1, A2, connT.shape[0])
+    assert Ke.dtype == torch.float32
+    assert tuple(Ke.shape) == (connT.shape[0] * (connT.shape[0] + 1) // 2,
+                               connT.shape[1])
+    W = np.random.default_rng(1).normal(size=js.ndof).astype(np.float32)
+    yj = jfp._laplace_apply(A1j, A2j, jnp.asarray(connT), js.mask,
+                            jnp.asarray(W), js.ndof, connT.shape[0])
+    yt = tfp.laplace_apply_elem_ref(Ke, cT, ts.mask.float(),
+                                    torch.as_tensor(W))
+    assert yt.dtype == torch.float32
+    assert rel(yt, yj) <= 1e-6
+
+
+def test_element_matrices_match_generic_assembler(pair):
+    """K_e from the assembler in f64 against the generic assembler's
+    element matrices of the same Laplace form (1e-12)."""
+    _, ts = pair
+    asm = ts._assembler("dx")
+    Ke = tfp.laplace_element_matrices(asm, torch.float64)
+    E = asm.element_matrices(forms("torch")["a"],
+                             torch.zeros(ts.ndof, dtype=torch.float64))
+    nen = E.shape[-1]
+    a, b = torch.triu_indices(nen, nen)
+    assert Ke.dtype == torch.float64
+    assert rel(Ke, E[:, a, b].t()) <= 1e-12
 
 
 def test_plain_apply_matches_ad_tangent(pair):

@@ -19,7 +19,7 @@ Tolerances (relative to the largest entry of the twin's result): f64
 1e-12; f32 1e-5, and 1e-4 on tangent stencils (f32 atomics add in a
 nondeterministic order, and the stencil entries sum 4-36 element
 contributions of mixed sign); 1e-6 on the f32 interface block apply (no
-atomics, one dot product of m terms per row); K12 (f32 only) 1e-5, and
+atomics, one dot product of m terms per row); K12 (f32 only) 1e-6, and
 2e-6 against the f64 AD tangent action (tests/test_fastpath.py); K13/K14
 f64 1e-12, f32 1e-5 (no atomics: each row is one warp's sum); K15/K16
 f64 1e-12, f32 1e-5 (no atomics, another sum order than the plain
@@ -300,6 +300,39 @@ def test_iface_block_kernel(cuda, nblocks, dtype, tol):
             for B, idx in blocks:
                 iface_block_apply(B, idx, v, y_k, m, alpha)
                 iface_block_apply_ref(B, idx, v, y_t, m, alpha)
+            torch.cuda.synchronize()
+            assert _rel(y_k - out, y_t - out) <= tol
+
+
+@pytest.mark.parametrize("offset", [False, True],
+                         ids=["aligned", "offset"])
+@pytest.mark.parametrize("m", [37, 1001, 12301])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_iface_block_kernel_sizes(cuda, m, offset, dtype, tol):
+    """K5 on seeded blocks: m = 37 (rows split over several warps), 1,001
+    (not a multiple of the vector width: scalar edges, unaligned rows) and
+    12,301 (the gathered vector above 48 KB of shared memory in either
+    type); B contiguous at its storage's start or one element after it
+    (every row unaligned), with and without a mask, alpha = +1 and -1."""
+    from tigar_tpu_torch.solvers.newton_stencil_mp import (
+        iface_block_apply, iface_block_apply_ref)
+    rng = np.random.default_rng(m)
+    n = 3 * m
+    store = torch.as_tensor(rng.normal(size=m * m + 1), dtype=dtype,
+                            device=cuda)
+    B = (store[1:] if offset else store[:-1]).view(m, m)
+    assert B.is_contiguous()
+    idx = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
+                          dtype=torch.int32, device=cuda)
+    v, out = (torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda)
+              for _ in range(2))
+    mask = torch.as_tensor(rng.random(n) < 0.9, dtype=dtype, device=cuda)
+    for mk in (None, mask):
+        for alpha in (1.0, -1.0):
+            y_k, y_t = out.clone(), out.clone()
+            iface_block_apply(B, idx, v, y_k, mk, alpha)
+            iface_block_apply_ref(B, idx, v, y_t, mk, alpha)
             torch.cuda.synchronize()
             assert _rel(y_k - out, y_t - out) <= tol
 
@@ -670,40 +703,86 @@ def _poisson_L(ctx, v):
             * torch.sin(torch.pi * ctx.x[1]) * v.val)
 
 
-@pytest.mark.parametrize("p,dim,nel", [(2, 2, 12), (3, 2, 8), (2, 3, 5)],
-                         ids=["2d-p2", "2d-p3", "3d-p2"])
+@pytest.mark.parametrize("p,dim,nel", [(1, 2, 12), (1, 3, 6), (2, 2, 12),
+                                       (3, 2, 8), (2, 3, 5), (3, 3, 4)],
+                         ids=["2d-p1", "3d-p1", "2d-p2", "2d-p3", "3d-p2",
+                              "3d-p3"])
 def test_laplace_apply_kernel(cuda, p, dim, nel):
+    """K12 for nen 4, 8, 9, 16, 27 and 64: the element-matrix entry point
+    and the JAX-layout entry point (which builds the element matrices) on
+    the card against their plain versions, and the operator against the
+    f64 AD tangent action."""
     from tigar_tpu_torch.ops import fastpath
     sp = _poisson(nel, cuda, p=p, dim=dim)
     asm = sp._assembler("dx")
-    A1, A2 = fastpath.laplace_layouts(asm)
+    Ke = fastpath.laplace_element_matrices(asm)
     connT = asm.conns[0].t().contiguous()
+    assert connT.shape[0] == (p + 1) ** dim
     W = torch.as_tensor(np.random.default_rng(0).normal(size=sp.ndof),
                         device=cuda)
-    m32 = sp.mask.float()
+    m32, W32 = sp.mask.float(), W.float()
     before = cuda_ext.counts()["laplace_apply"]
-    yk = fastpath.laplace_apply(A1, A2, connT, m32, W.float())
+    yk = fastpath.laplace_apply_elem(Ke, connT, m32, W32)
     assert cuda_ext.counts()["laplace_apply"] == before + 1
-    yt = fastpath.laplace_apply_ref(A1, A2, connT, m32, W.float())
-    scale = float(yt.abs().max())
-    assert float((yk - yt).abs().max()) <= 1e-5 * scale
+    yt = fastpath.laplace_apply_elem_ref(Ke, connT, m32, W32)
+    assert _rel(yk, yt) <= 1e-6
+    A1, A2 = fastpath.laplace_layouts(asm)
+    yl = fastpath.laplace_apply(A1, A2, connT, m32, W32)
+    assert cuda_ext.counts()["laplace_apply"] == before + 2
+    assert _rel(yl, fastpath.laplace_apply_ref(A1, A2, connT, m32,
+                                               W32)) <= 1e-6
     ref = sp.tangent_action(_poisson_a, torch.zeros_like(W), W)
     out = fastpath.make_laplace_operator(asm, sp.mask)(W)
     assert out.dtype == torch.float64
     assert float((out - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
 
 
+def test_laplace_apply_kernel_scrambled_connectivity(cuda):
+    """A random DoF numbering of the 128^2 p=2 Poisson: every block's DoF
+    range exceeds the kernel's shared window, so K12 adds straight to r
+    with global atomics; it agrees with its plain version and with the
+    unscrambled apply."""
+    from tigar_tpu_torch.ops import cuda_ext, fastpath
+    sp = _poisson(128, cuda)
+    asm = sp._assembler("dx")
+    Ke = fastpath.laplace_element_matrices(asm)
+    connT = asm.conns[0].t().contiguous()
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(sp.ndof),
+                           device=cuda)
+    connS = perm[connT.long()].to(torch.int32).contiguous()
+    nen, nel = connS.shape
+    blocks = connS[:, :nel // 4 * 4].reshape(nen, -1, 4)
+    ranges = blocks.amax((0, 2)) - blocks.amin((0, 2)) + 1
+    assert int(ranges.min()) > cuda_ext.load().LAPLACE_WINDOW
+    W = torch.as_tensor(np.random.default_rng(4).normal(size=sp.ndof),
+                        dtype=torch.float32, device=cuda)
+    m32 = sp.mask.float()
+    WS, mS = torch.empty_like(W), torch.empty_like(m32)
+    WS[perm], mS[perm] = W, m32
+    yk = fastpath.laplace_apply_elem(Ke, connS, mS, WS)
+    assert _rel(yk, fastpath.laplace_apply_elem_ref(Ke, connS, mS, WS)) \
+        <= 1e-6
+    assert _rel(yk[perm], fastpath.laplace_apply_elem(Ke, connT, m32, W)) \
+        <= 1e-6
+
+
 def test_laplace_apply_refuses_what_it_cannot_take(cuda):
     from tigar_tpu_torch.ops import fastpath
     sp = _poisson(4, cuda)
     asm = sp._assembler("dx")
-    A1, A2 = fastpath.laplace_layouts(asm)
+    Ke = fastpath.laplace_element_matrices(asm)
     connT = asm.conns[0].t().contiguous()
+    m32 = sp.mask.float()
     W = torch.zeros(sp.ndof, device=cuda)
+    with pytest.raises(RuntimeError, match="Ke has dtype"):
+        fastpath.laplace_apply_elem(Ke.double(), connT, m32, W)
+    with pytest.raises(RuntimeError, match="Ke has shape"):
+        fastpath.laplace_apply_elem(Ke[:-1].contiguous(), connT, m32, W)
+    A1, A2 = fastpath.laplace_layouts(asm)
     with pytest.raises(TypeError):
         fastpath.laplace_apply(A1.double(), A2.double(), connT, sp.mask, W)
     with pytest.raises(ValueError):
-        fastpath.laplace_apply(A1[:-1], A2[:-1], connT, sp.mask.float(), W)
+        fastpath.laplace_apply(A1[:-1], A2[:-1], connT, m32, W)
 
 
 def test_twolevel_cycle_runs_through_kernels(cuda):

@@ -283,22 +283,18 @@ torch::Tensor ell_spmv(torch::Tensor cols, torch::Tensor vals,
   return y;
 }
 
-torch::Tensor laplace_apply(torch::Tensor A1, torch::Tensor A2,
-                            torch::Tensor connT, torch::Tensor mask,
-                            torch::Tensor W) {
-  TORCH_CHECK(connT.dim() == 2 && A1.dim() == 2 && W.dim() == 1,
-              "connT [nen, nel], A1 [nen * M, nel], W a vector");
+torch::Tensor laplace_apply(torch::Tensor Ke, torch::Tensor connT,
+                            torch::Tensor mask, torch::Tensor W) {
+  TORCH_CHECK(connT.dim() == 2 && Ke.dim() == 2 && W.dim() == 1,
+              "connT [nen, nel], Ke [nen (nen + 1) / 2, nel], W a vector");
   const int64_t nen = connT.size(0), nel = connT.size(1), ndof = W.size(0);
-  TORCH_CHECK(nen >= 1 && A1.size(0) % nen == 0, "A1 rows ", A1.size(0),
-              " are not a multiple of nen ", nen);
   TORCH_CHECK(nen == 4 || nen == 8 || nen == 9 || nen == 16 || nen == 27 ||
                   nen == 64,
               "K12 takes nen in {4, 8, 9, 16, 27, 64}, got ", nen);
-  const int64_t M = A1.size(0) / nen;
-  TORCH_CHECK(nen * M * nel < (int64_t(1) << 40) && nel < (int64_t(1) << 31)
-                  && ndof < (int64_t(1) << 31), "K12 shape too large");
-  check(A1, "A1", torch::kFloat, {nen * M, nel});
-  check(A2, "A2", torch::kFloat, {nen * M, nel});
+  const int64_t np = nen * (nen + 1) / 2;
+  TORCH_CHECK(nel < (int64_t(1) << 31) && ndof < (int64_t(1) << 31),
+              "K12 shape too large: nel ", nel, ", ndof ", ndof);
+  check(Ke, "Ke", torch::kFloat, {np, nel});
   check(connT, "connT", torch::kInt, {nen, nel});
   check(mask, "mask", torch::kFloat, {ndof});
   check(W, "W", torch::kFloat, {ndof});
@@ -306,9 +302,9 @@ torch::Tensor laplace_apply(torch::Tensor A1, torch::Tensor A2,
   auto r = torch::empty_like(W);
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
   const cudaError_t err = tigar::laplace_apply_launch(
-      (int)nel, (int)nen, (int)M, (int)ndof, A1.data_ptr<float>(),
-      A2.data_ptr<float>(), connT.data_ptr<int>(), mask.data_ptr<float>(),
-      W.data_ptr<float>(), r.data_ptr<float>(), stream);
+      (int)nel, (int)nen, (int)ndof, Ke.data_ptr<float>(),
+      connT.data_ptr<int>(), mask.data_ptr<float>(), W.data_ptr<float>(),
+      r.data_ptr<float>(), stream);
   check_launch(err, "laplace_apply");
   return r;
 }
@@ -533,8 +529,11 @@ void iface_block(torch::Tensor B, torch::Tensor idx,
   if (mask) check(*mask, "mask", dt, {n});
   TORCH_CHECK(out.data_ptr() != v.data_ptr(), "out must not alias v");
   TORCH_CHECK(alpha == 1.0 || alpha == -1.0, "alpha must be +1 or -1");
-  TORCH_CHECK(m * (int64_t)out.element_size() <= 227 * 1024,
-              "an interface block of ", m, " DoFs exceeds shared memory");
+  const size_t smem = dt == torch::kFloat
+                          ? tigar::iface_block_smem<float>(m, mask.has_value())
+                          : tigar::iface_block_smem<double>(m, mask.has_value());
+  TORCH_CHECK(smem <= 227 * 1024, "an interface block of ", m,
+              " DoFs exceeds shared memory (", smem, " bytes)");
   const c10::cuda::CUDAGuard guard(v.device());
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
   cudaError_t err;
@@ -964,6 +963,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ell_spmv", &ell_spmv, "K11: ELL product / residual / Jacobi");
   m.def("laplace_apply", &laplace_apply,
         "K12: f32 scalar stiffness apply over explicit connectivity");
+  m.attr("LAPLACE_WINDOW") = tigar::LAPLACE_WINDOW;
   m.def("contact_residual", &contact_residual,
         "K13: all-pairs penalty contact forces");
   m.def("contact_tangent", &contact_tangent,

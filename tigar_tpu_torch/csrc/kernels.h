@@ -3,9 +3,36 @@
 // after its launch.  Explicitly instantiated for float and double in the
 // .cu files; bindings.cpp is the only caller.
 #pragma once
+#include <cstddef>
+
 #include <cuda_runtime.h>
 
 namespace tigar {
+
+// The current device's streaming multiprocessor count, read once (132 on
+// the H100 SXM, also the fallback).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// Lets ``kernel`` take ``bytes`` of dynamic shared memory when that is above
+// ``*allowed`` (the caller's record for this kernel, 48 KB to begin with).
+inline cudaError_t allow_smem(const void* kernel, size_t bytes,
+                              size_t* allowed) {
+  if (bytes <= *allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *allowed = bytes;
+  return e;
+}
 
 // K1: SVK shell residual, one thread per quadrature point.
 // consts = {lam_ps, 2 mu, h, h^3/12, load0, load1, load2}.
@@ -78,11 +105,17 @@ cudaError_t sumfac_apply_launch(const SumfacArgs<T>& a, cudaStream_t stream);
 
 // K5: out[idx[i]] += alpha m_i sum_j B[i][j] m_j v[idx[j]] for one dense
 // interface block B [m][m] over the sorted, unique support idx [m];
-// m_i = mask[idx[i]] (1 when mask == nullptr).
+// m_i = mask[idx[i]] (1 when mask == nullptr).  Each block holds the
+// gathered vector, and with a mask its mask values, in shared memory:
+// iface_block_smem bytes, at most 227 KB.
+template <typename T>
+constexpr size_t iface_block_smem(long long m, bool masked) {
+  return (size_t)m * sizeof(T) * (masked ? 2 : 1);
+}
 template <typename T>
 cudaError_t iface_block_launch(int m, const T* B, const int* idx,
-                               const T* mask, const T* v, double alpha, T* out,
-                               cudaStream_t stream);
+                               const T* mask, const T* v, double alpha,
+                               T* out, cudaStream_t stream);
 
 // One side of a shell interface at nq points: conn [nq][3][9] global DoF
 // indices, rows R0 [nq][3][9] and R1 [nq][3][9][2], DF [nq][3][2].
@@ -172,10 +205,13 @@ cudaError_t ell_spmv_launch(int n, int K, const int* cols, const T* vals,
                             int mode, T* y, cudaStream_t stream);
 
 // K12: f32 scalar stiffness apply r = mask A (mask W) + (1 - mask) W over
-// connT [nen][nel] (nen in {4, 8, 9, 16, 27, 64}) with the layouts A1, A2
-// [nen][M][nel] (M = nq * d); r of ndof entries, every entry written.
-cudaError_t laplace_apply_launch(int nel, int nen, int M, int ndof,
-                                 const float* A1, const float* A2,
+// connT [nen][nel] (nen in {4, 8, 9, 16, 27, 64}) with the element matrices'
+// upper triangles Ke [nen (nen + 1) / 2][nel] (row a nen - a (a - 1) / 2 +
+// b - a holds K_e[a][b], a <= b); r of ndof entries, every entry written.
+// A block whose elements touch a DoF range of more than LAPLACE_WINDOW
+// entries adds to r with global atomics instead of its shared window.
+constexpr int LAPLACE_WINDOW = 2048;
+cudaError_t laplace_apply_launch(int nel, int nen, int ndof, const float* Ke,
                                  const int* connT, const float* mask,
                                  const float* W, float* r,
                                  cudaStream_t stream);

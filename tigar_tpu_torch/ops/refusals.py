@@ -38,6 +38,7 @@ def _calls():
     def i32(*shape):
         return z(*shape, dt=torch.int32)
 
+    f32 = torch.float32
     bad = i32(1)                        # an int tensor where floats go
     shell = [bad] * 11                  # K1/K2: check_float(U) refuses
 
@@ -76,7 +77,11 @@ def _calls():
             i32(1, 1), z(1, 1, 1), -1),
         "ell_spmv": lambda e: e.ell_spmv(i32(1, 1), bad, bad, None, None, 0),
         "laplace_apply": lambda e: e.laplace_apply(
-            z(1), z(1), i32(1, 1), z(1), z(1)),
+            z(1, 1), i32(1, 1), z(1), z(1)),
+        "laplace_apply/Ke": lambda e: e.laplace_apply(
+            z(10, 1), i32(4, 1), z(1, dt=f32), z(1, dt=f32)),
+        "laplace_apply/shape": lambda e: e.laplace_apply(
+            z(9, 1, dt=f32), i32(4, 1), z(1, dt=f32), z(1, dt=f32)),
         "contact_residual": lambda e: e.contact_residual(
             z(1), bad, z(1), 1.0, 1.0),
         "contact_tangent": lambda e: e.contact_tangent(

@@ -71,22 +71,12 @@ def iface_block_apply_ref(B, idx, v, out, mask=None, alpha=1.0):
 
 
 def iface_block_apply_cuda(B, idx, v, out, mask=None, alpha=1.0):
-    """Kernel K5: the gathered, masked vector staged in shared memory, one
-    warp per row of B, each output written once."""
-    n = v.shape[0]
-    for name, t in (("v", v), ("out", out), ("mask", mask)):
-        if t is not None and (t.shape != (n,) or t.dtype != v.dtype
-                              or not t.is_cuda or not t.is_contiguous()):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} dtype "
-                             f"{t.dtype}")
-    m = idx.shape[0]
-    if B.shape != (m, m) or B.dtype != v.dtype or not B.is_cuda:
-        raise ValueError(f"block {tuple(B.shape)} {B.dtype} vs idx [{m}] "
-                         f"and v {v.dtype}")
-    if idx.dtype != torch.int32 or not idx.is_cuda:
-        raise TypeError("idx must be an int32 CUDA tensor")
-    cuda_ext.load().iface_block(B.contiguous(), idx.contiguous(), mask, v,
-                                float(alpha), out)
+    """Kernel K5 (csrc/iface_block.cu): rows split evenly over one wave of
+    the card, 16-byte loads of B, the gathered masked vector in shared
+    memory, each output written once.  B and idx come from an
+    ``IfaceBlock`` (checked and made contiguous where the operator is
+    built); the binding checks device, type and shape of every tensor."""
+    cuda_ext.load().iface_block(B, idx, mask, v, float(alpha), out)
     cuda_ext.count("iface_block")
     return out
 
@@ -108,6 +98,23 @@ class IfaceBlock(NamedTuple):
     Sinv: Optional[Any] = None
 
 
+def _checked_block(blk):
+    """The block with idx int32 and K, Sinv [m, m] on idx's device, each
+    contiguous: what K5's binding takes, checked once per operator."""
+    idx, K, Sinv = blk
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise TypeError(f"idx must be an int32 vector, got {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    m = idx.shape[0]
+    for name, t in (("K", K), ("Sinv", Sinv)):
+        if t is not None and (tuple(t.shape) != (m, m)
+                              or t.device != idx.device):
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} vs idx "
+                             f"[{m}] on {idx.device}")
+    return IfaceBlock(idx.contiguous(), K.contiguous(),
+                      None if Sinv is None else Sinv.contiguous())
+
+
 class MultiPatchStencilOperator:
     """W -> A @ W for a multi-patch assembled tangent: per-patch
     StencilOperators over the field-major global layout (patch blocks
@@ -121,7 +128,7 @@ class MultiPatchStencilOperator:
 
     def __init__(self, sts, ifaces, foffsets, doffsets, nf):
         self.sts = tuple(sts)
-        self.ifaces = tuple(ifaces)
+        self.ifaces = tuple(_checked_block(blk) for blk in ifaces)
         self.foffsets = tuple(int(o) for o in foffsets)
         self.doffsets = tuple(int(o) for o in doffsets)
         self.nf = int(nf)
@@ -451,9 +458,9 @@ class MultiPatchStencilNewton(StencilNewton):
             S = blk.K + torch.diag(d_tot[il] - Kd)
             S = m_idx[:, None] * S * m_idx[None, :] + torch.diag(1.0 - m_idx)
             sinvs.append(torch.linalg.inv(S.to(F64)).to(F32))
-        op.ifaces = tuple(IfaceBlock(blk.idx, blk.K, Si)
-                          for blk, Si in zip(blocks, sinvs))
-        return op
+        return MultiPatchStencilOperator(
+            sts, [IfaceBlock(blk.idx, blk.K, Si)
+                  for blk, Si in zip(blocks, sinvs)], foff, doff, self.nf)
 
     def _build(self, asm, U):
         f64 = U.dtype == F64
