@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of tigar_tpu_torch on one NVIDIA card: the production
 Newton path of the clamped SVK Kirchhoff-Love shell (stencil multigrid,
-and the space-agnostic smoothed-aggregation tier), the two-patch coupled
-shells, the matrix-free 3D Poisson multigrid path, the generic form
+and the space-agnostic smoothed-aggregation tier, also on a star
+T-spline), the two-patch coupled shells, the matrix-free 3D Poisson multigrid path, the generic form
 path (2D Poisson through user-written densities, mixed-precision
 refinement, smoothed-aggregation CG), the shell with nonlocal penalty
 self-contact (the reef-knot demo) and sum-factorized assembly of arbitrary
@@ -151,7 +151,11 @@ Phases, each fatal on failure (nothing is caught):
      entry, on the 128^2 shell's three fields and its control net at
      nders 2, the 24^3 continuity_drop=1 Poisson field at nders 1, a
      small periodic (gather) field and the small RT pair, with CUDA-event
-     and device times and byte bounds; after phase 11 the main path of
+     and device times and byte bounds, and, at the shell's fields and the
+     24^3 field (f64, f32), their library yardstick: the same linear jet
+     map as one torch.sparse CSR matrix J (K15: J @ W; K16: J^T @ F),
+     built by probing the plain version in colors, CUDA events and
+     profiler device time; after phase 11 the main path of
      scripts/bench_shell_sumfac.py (the 128^2 shell, E=1e7, nu=0.3,
      h=0.03, q=1e-2, U = 1e-4 N(0, 1) from numpy seed 0, the shell
      reference on the sumfac ctx): the sumfac residual and tangent action
@@ -163,6 +167,26 @@ Phases, each fatal on failure (nothing is caught):
      with the small-input references, the card against the CPU plain
      versions at tests/test_sumfac_forms.py's sizes (shell nel=5, 3D
      nel=3; 1e-12).
+ 14. the star-T-spline shell point of bench._tspline_point at its default
+     size (tigar_tpu_torch/demos/star_tspline_shell.py): the valence-3
+     star of make_star_extraction(3, 48), written to a Rhino file and read
+     back, 6,912 bicubic extraction elements, 22,953 DoFs, clamped by
+     boundary_dofs(1), E=3e4, nu=0.3, h=0.03, q=0.4, quadrature degree 6
+     (16 points), SANewton with cg_iters=120, polish_cg_iters=160,
+     polish_tangent="f64", build_quad_degree=4 (9 points), rebuild_rel=0.1,
+     near_kernel "linear", f64 residuals on the card.  With phase 2 (device
+     times right away): K2's element mode at 48 local functions (f64, f32;
+     9 and 16 points), K10 at nloc 48 and K11 on the star's SA levels, K1
+     at 16 points (f64, f32), all against their plain versions at the
+     star's shapes, and K1 / K2 also on a ragged extraction (the file of
+     tests/test_tsplines.py:144, built with the port's
+     bspline_to_rhino_extraction and merge_extraction_nodes: padded
+     elements, whose rows of E must be zero).  After phase 13: the demo's
+     run(48) (best of 2 warm f32 steps, the solve with every launch count
+     reset just before it and read just after, the floor certificate of
+     bench._solve_and_certify, the best of 2 warm polish steps); with the
+     small-input references, build(4) on the card against the CPU plain
+     versions (coarse_size 50: steps within 1, U within 1e-8).
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script raises.
@@ -189,9 +213,10 @@ TOL = {"f64": 1e-12, "f32": 1e-5, "f32_stencil": 1e-4}
 P3, NEL3, QD3, MG_ITERS = 2, 96, 4, 20
 
 # the card's published rates (NVIDIA H100 SXM data sheet, 700 W): memory,
-# and arithmetic outside the tensor cores per type
+# and the fastest arithmetic of each type at its full precision (f32
+# outside the tensor cores; f64 on the tensor cores, twice its vector rate)
 MEM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 CARD = None
 
@@ -274,23 +299,27 @@ def device_ms(fn, reps, match, per_call=1):
     the launches the session recorded per call.  A call launches
     ``per_call`` such kernels; a session that records another number is
     not a measurement (later sessions of this script recorded 0.05-0.9 of
-    the launches on an H100), and the time is then None."""
+    the launches on an H100, and sessions of short kernels 0.94-0.98),
+    so up to three sessions run until one records every launch; the time
+    is None when none does."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and match in e.key
-          and e.self_device_time_total > 0]
-    recorded = sum(e.count for e in ev) / reps
-    if recorded != per_call:
-        return None, recorded
-    return sum(e.self_device_time_total for e in ev) / 1e3 / reps, recorded
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and match in e.key
+              and e.self_device_time_total > 0]
+        recorded = sum(e.count for e in ev) / reps
+        if recorded == per_call:
+            return (sum(e.self_device_time_total for e in ev) / 1e3 / reps,
+                    recorded)
+    return None, recorded
 
 
 def library_device_ms(fn, reps):
@@ -1438,19 +1467,60 @@ def csr_of(rows, cols, vals, shape):
     return A.to_sparse_csr()
 
 
-def sa_kernel_phases(ns, U64, rec):
+SA_KEYS = ("tangent_elements", "elem_tangent_apply", "ell_spmv")
+
+
+def residual_work(asm, dens, U):
+    """K1's work for ``bound``: it reads U, the per-point data and the
+    padding mask once and writes r; operations: at least the jet
+    contractions, 2 x 2 x 7 nloc per point (7 jet slots of each of the nloc
+    local functions, gathered and contracted back)."""
+    from tigar_tpu_torch.ops.assembly import (shell_kernel_args,
+                                              shell_padding_mask)
+    args = shell_kernel_args(asm, dens, U)
+    m = shell_padding_mask(asm)
+    return (nbytes(U, U, *args, *([] if m is None else [m])),
+            28.0 * asm.nloc * asm.nel * asm.nq, U.dtype)
+
+
+def elements_work(asm, dens, U, me):
+    """K2's element mode's work for ``bound``: it reads what K2 reads (not
+    N), me and the padding mask, and writes E; operations: at least the
+    element matrix of the 18x18 pointwise Jacobian with each local
+    function in 6 jet slots, E's symmetric half only,
+    2 (18 nloc 6 + nloc (nloc + 1) / 2 6) per point."""
+    from tigar_tpu_torch.ops.assembly import (shell_kernel_args,
+                                              shell_padding_mask)
+    args = shell_kernel_args(asm, dens, U)
+    m = shell_padding_mask(asm)
+    return (nbytes(U, *args[:1], *args[2:], me, *([] if m is None else [m]))
+            + asm.nel * asm.nloc ** 2 * U.element_size(),
+            12.0 * (18 * asm.nloc + asm.nloc * (asm.nloc + 1) / 2)
+            * asm.nel * asm.nq,
+            U.dtype)
+
+
+def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
     """K2's element mode (f32 at the build rule, f64 for the polish
     tangent), K10 (apply, BC'd apply, diagonal; f32 and f64) and K11 (A,
     P and P^T of every SA level, and A's residual and Jacobi modes; f32,
     as the cycle runs) against their plain versions at the SANewton
     path's shapes, at a seeded smooth state.  K10's and K11's library
     yardstick is the same matrix as a torch.sparse CSR tensor applied with
-    ``@``.  Returns the host seconds of one SA hierarchy setup."""
+    ``@``.  The records go to ``rec[k]`` for the three names of ``keys``;
+    ``probe`` takes each profiler device time right away (else later, in
+    ``kernel_device_times``).  Returns the host seconds of one SA hierarchy
+    setup."""
     from tigar_tpu_torch.ops import sparse
-    from tigar_tpu_torch.ops.assembly import (element_matrices_adjoint_ref,
-                                              shell_kernel_args)
-    for name in ("tangent_elements", "elem_tangent_apply", "ell_spmv"):
+    from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
+    k_te, k_et, k_ell = keys
+    for name in keys:
         rec.setdefault(name, [])
+    label = f" {label}" if label else ""
+
+    def done(key):
+        if probe:
+            probe_device_time(rec[key][-1])
     dens = ns.adjoint
     me64 = ns._me64
     sts = {}
@@ -1463,18 +1533,18 @@ def sa_kernel_phases(ns, U64, rec):
             ("f64", ns.asm_b64, U64, TOL["f64"]),
             ("f32", ns.asm_b32, U64.float(), TOL["f32_stencil"])):
         me = me64.to(U.dtype)
-        args = shell_kernel_args(asm, dens, U)
-        # reads what K2 reads (not N) and me, writes E; operations as K2
-        work = (nbytes(U, *args[:1], *args[2:], me)
-                + asm.nel * 729 * U.element_size(),
-                14580.0 * asm.nel * asm.nq, U.dtype)
+        compare(f"K2 tangent_elements {tag} nq={asm.nq}{label}",
+                lambda a=asm, u=U, me=me: a.element_matrices_adjoint(
+                    dens, u, me=me),
+                lambda a=asm, u=U, me=me: element_matrices_adjoint_ref(
+                    a, dens, u, me), tol, 5, 1, rec[k_te],
+                match="tangent_stencil_kernel",
+                work=elements_work(asm, dens, U, me))
+        done(k_te)
         kern = (lambda a=asm, u=U, me=me: a.element_matrices_adjoint(
             dens, u, me=me))
         plain = (lambda a=asm, u=U, me=me: element_matrices_adjoint_ref(
             a, dens, u, me))
-        compare(f"K2 tangent_elements {tag} nq={asm.nq}", kern, plain, tol,
-                5, 1, rec["tangent_elements"],
-                match="tangent_stencil_kernel", work=work)
         if tag == "f32":
             scale = float(E64.abs().max())
             say(f"    f32 rounding: max |E - E_f64 plain| / max |E_f64|: "
@@ -1511,10 +1581,11 @@ def sa_kernel_phases(ns, U64, rec):
                 work = (nbytes(st.E, st.conn, x, x)
                         + (n * es if mk is not None else 0),
                         2.0 * nel * nloc * nloc, dt)
-            compare(f"K10 elem_tangent {what} {tag} nel={nel}", kern, plain,
-                    TOL[tag], 50, 5, rec["elem_tangent_apply"],
+            compare(f"K10 elem_tangent {what} {tag} nel={nel} nloc={nloc}"
+                    f"{label}", kern, plain, TOL[tag], 50, 5, rec[k_et],
                     match="elem_", work=work,
                     per_call=1 if what == "diagonal" else 2)
+            done(k_et)
             if what == "masked":
                 # the BC'd operator: masked E plus the unit diagonal at
                 # the constrained DoFs
@@ -1527,15 +1598,15 @@ def sa_kernel_phases(ns, U64, rec):
                            (n, n))
                 yk = kern()
                 lib_err = float((A @ x - yk).abs().max() / yk.abs().max())
-                rec["elem_tangent_apply"][-1]["library_ms"] = cuda_ms(
+                rec[k_et][-1]["library_ms"] = cuda_ms(
                     lambda A=A, x=x: A @ x, 50)
                 say(f"    library yardstick torch.sparse CSR @ x ({A._nnz()} "
                     f"entries) {tag}: "
-                    f"{rec['elem_tangent_apply'][-1]['library_ms']:.4f} ms, "
+                    f"{rec[k_et][-1]['library_ms']:.4f} ms, "
                     f"rel diff {lib_err:.1e}")
 
     # the SA hierarchy of the f32 tangent (host setup timed on its own)
-    ns._sa = None
+    ns.reset()
     t0 = time.perf_counter()
     sa = ns._ensure_sa(sts["f32"])
     torch.cuda.synchronize()
@@ -1561,17 +1632,18 @@ def sa_kernel_phases(ns, U64, rec):
                         + (4 * cols.shape[0] if mode == "jacobi" else 0),
                         2.0 * vals.numel(), torch.float32)
                 compare(f"K11 ell_spmv {op} {mode} f32 level {l} "
-                        f"n={cols.shape[0]} K={cols.shape[1]}",
+                        f"n={cols.shape[0]} K={cols.shape[1]}{label}",
                         lambda a=a: sparse.ell_spmv(*a),
                         lambda a=a: sparse.ell_spmv_ref(*a),
-                        TOL["f32"], 50, 5, rec["ell_spmv"],
+                        TOL["f32"], 50, 5, rec[k_ell],
                         match="ell_spmv_kernel", work=work)
+                done(k_ell)
                 if mode == "apply":
                     rr = torch.arange(cols.shape[0], device=x.device)
                     rr = rr[:, None].expand_as(cols).reshape(-1)
                     A = csr_of(rr, cols.reshape(-1), vals.reshape(-1),
                                (cols.shape[0], ncol))
-                    rec["ell_spmv"][-1]["library_ms"] = cuda_ms(
+                    rec[k_ell][-1]["library_ms"] = cuda_ms(
                         lambda A=A, x=x: A @ x, 50)
     return setup_s
 
@@ -1583,14 +1655,14 @@ def sa_main_path(ns, U_stencil, setup_s):
     from tigar_tpu_torch.ops import cuda_ext
     ndof = ns.spline.ndof
     U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
-    ns._sa = None
+    ns.reset()
     U1, rn, _ = ns.step(U0)                    # warm-up (builds the SA)
     float(rn)
     best = best_of_3(lambda: ns.step(U1))
     say(f"SANewton production (f32) newton step (frozen hierarchy "
         f"{ns._sa.level_sizes}): best of 3 {best * 1e3:.3f} ms "
         f"({ndof / best:.4e} DoF/s); one host SA setup {setup_s:.3f} s")
-    ns._sa, ns._st64 = None, None
+    ns.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_ext.reset_counts()
@@ -1599,6 +1671,9 @@ def sa_main_path(ns, U_stencil, setup_s):
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = cuda_ext.counts()
+    say(f"SANewton solve: {len(ns.sa_setup_s)} host SA setups, "
+        f"{sum(ns.sa_setup_s):.3f} s ({sum(ns.sa_setup_s) / t_solve:.4f} of "
+        f"the solve)")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     err = float((Usol - U_stencil).abs().max() / U_stencil.abs().max())
     say(f"SANewton full solve: {t_solve:.3f} s, {nsteps} steps, f64 rel "
@@ -1636,6 +1711,133 @@ def sa_reference(device):
         f"plain {itc} steps rel {relc:.3e}, max rel diff of U {err:.3e}")
     if not (err <= 1e-8 and relg <= 1e-9 and abs(itg - itc) <= 1):
         raise SystemExit("SANewton small-input reference FAILED")
+
+
+# -- phase 14: the star-T-spline shell through SANewton ---------------------
+
+# bench._tspline_point at its default size (BENCH_TS_NEL=48): the demo's
+# problem and options (tigar_tpu_torch/demos/star_tspline_shell.py)
+TS_NEL = 48
+TS_KEYS = ("tangent_elements_bicubic", "elem_tangent_apply_nloc48",
+           "ell_spmv_star")
+TS_REF = {"coarse_size": 50}          # the nel=4 reference, as the CPU test
+
+
+def ts_kernel_phases(ns, ragged, rec):
+    """Phase 14, step 1 (with the other kernel checks, before the main
+    paths' profiler sessions): at the star's shapes (6,912 elements, 48
+    local functions), K2's element mode (f64, f32) at the build rule's 9
+    points, K10 at nloc 48 and K11 on the star's SA levels
+    (``sa_kernel_phases``), then K1 (f64, f32; 16 points) and K2's element
+    mode at the residual rule's 16 points, and both on the ragged
+    extraction (padding mask not all ones) at 9 and 16 points, each
+    against its plain version with an immediate profiler device time.
+    The state is 1e-3 N(0, 1) on the free DoFs (numpy seed 0).  Returns
+    the host seconds of one SA hierarchy setup."""
+    from tigar_tpu_torch.ops.assembly import (element_matrices_adjoint_ref,
+                                              residual_vector_adjoint_ref)
+    rec.setdefault("shell_residual_bicubic", [])
+    dens = ns.adjoint
+    rng = np.random.default_rng(0)
+    U_star = ns.mask64 * torch.as_tensor(
+        rng.normal(size=ns.spline.ndof) * 1e-3, device=ns.mask64.device)
+    setup_s = sa_kernel_phases(ns, U_star, rec, keys=TS_KEYS, label="star",
+                               probe=True)
+    for label, sp, U64 in (
+            ("star", ns.spline, U_star),
+            ("ragged", ragged, ragged.mask * torch.as_tensor(
+                rng.normal(size=ragged.ndof) * 1e-3,
+                device=ragged.mask.device))):
+        a64 = sp._assembler("dx")
+        for tag, dt, tol in (("f64", torch.float64, TOL["f64"]),
+                             ("f32", torch.float32, TOL["f32"])):
+            asm, U = a64.astype(dt), U64.to(dt)
+            compare(f"K1 shell_residual {tag} nq={asm.nq} nen=16 {label}",
+                    lambda a=asm, u=U: a.residual_vector_adjoint(dens, u),
+                    lambda a=asm, u=U: residual_vector_adjoint_ref(a, dens,
+                                                                   u),
+                    tol, 20, 3, rec["shell_residual_bicubic"],
+                    match="shell_residual_kernel",
+                    work=residual_work(asm, dens, U))
+            probe_device_time(rec["shell_residual_bicubic"][-1])
+        pad = a64.masks[0].repeat(1, 3)
+        me64 = sp.mask[a64.cat_conn] * pad
+        # the build rule's 9 points at the star ran in sa_kernel_phases
+        rules = (16,) if label == "star" else (9, 16)
+        for nq in rules:
+            ab = sp._assembler("dx", quad_degree=4 if nq == 9 else None)
+            for tag, dt, tol in (("f64", torch.float64, TOL["f64"]),
+                                 ("f32", torch.float32,
+                                  TOL["f32_stencil"])):
+                asm, U, me = ab.astype(dt), U64.to(dt), me64.to(dt)
+                compare(f"K2 tangent_elements {tag} nq={asm.nq} nen=16 "
+                        f"{label}",
+                        lambda a=asm, u=U, me=me: a.element_matrices_adjoint(
+                            dens, u, me=me),
+                        lambda a=asm, u=U, me=me:
+                        element_matrices_adjoint_ref(a, dens, u, me),
+                        tol, 5, 1, rec["tangent_elements_bicubic"],
+                        match="tangent_stencil_kernel",
+                        work=elements_work(asm, dens, U, me))
+                probe_device_time(rec["tangent_elements_bicubic"][-1])
+                if label == "ragged":
+                    E = asm.element_matrices_adjoint(dens, U, me=me)
+                    if float(E[pad == 0].abs().max()) != 0.0:
+                        raise SystemExit("K2 element mode: a padded row of "
+                                         "the ragged extraction is not zero")
+    return setup_s
+
+
+def ts_main_path(ns, setup_sa_s):
+    """Phase 14, step 2: the demo's entry point
+    (tigar_tpu_torch.demos.star_tspline_shell.run) on the card at
+    nel=48, every launch count reset just before the solve and read just
+    after (inside ``run``); fails unless the solve launched K1, K2's
+    element mode, K10 and K11, its solution is finite and the f64 floor is
+    certified as bench._solve_and_certify certifies it."""
+    from tigar_tpu_torch.demos import star_tspline_shell as demo
+    out = demo.run(TS_NEL, log=say, ns=ns)
+    U, launches = out.pop("U"), out["launches"]
+    say(f"star T-spline main path ({out['ndof']} DoFs, {out['nel']} "
+        f"elements, SA levels {out['levels']}; one host SA setup "
+        f"{setup_sa_s:.3f} s): best of 2 warm f32 steps "
+        f"{out['step32_s'] * 1e3:.3f} ms, polish step "
+        f"{out['polish_step_s'] * 1e3:.3f} ms; solve {out['solve_s']:.3f} s, "
+        f"{out['steps']} steps, rel64 {out['rel64']:.3e}, |dU|/|U| "
+        f"{out['dU_rel']:.3e}, CPU plain rel {out['cpu_rel']:.3e}: "
+        f"floor_certified={out['floor_certified']}, "
+        f"f64_accurate={out['f64_accurate']}; {len(out['sa_setup_s'])} "
+        f"host SA setups in the solve, {sum(out['sa_setup_s']):.3f} s "
+        f"({sum(out['sa_setup_s']) / out['solve_s']:.4f} of it)")
+    say(f"star T-spline main-path kernel launches: {launches}")
+    if tuple(U.shape) != (out["ndof"],) or not bool(torch.isfinite(U).all()):
+        raise SystemExit("star T-spline solution is not finite or has the "
+                         "wrong shape")
+    need = ("shell_residual", "tangent_elements", "elem_tangent_apply",
+            "ell_spmv")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"star T-spline main path never launched {missing}")
+    if not out["f64_accurate"]:
+        raise SystemExit("star T-spline floor certificate FAILED")
+    return out, launches
+
+
+def ts_reference(device):
+    """Phase 14, step 3: the star at nel=4 (381 DoFs; the bench's options
+    with coarse_size 50, as tests/test_torch_tsplines.py), solved on the
+    card and through the plain versions on the CPU: steps within 1, U
+    within 1e-8."""
+    from tigar_tpu_torch.demos import star_tspline_shell as demo
+    ns_g, ns_c = (demo.build(4, d, TS_REF) for d in (device, "cpu"))
+    Ug, relg, itg, _ = ns_g.solve(rtol=demo.RTOL)
+    Uc, relc, itc, _ = ns_c.solve(rtol=demo.RTOL)
+    err = float((Ug.cpu() - Uc).abs().max() / Uc.abs().max())
+    say(f"star T-spline small-input reference (nel=4, levels "
+        f"{ns_g._sa.level_sizes}): card {itg} steps rel {relg:.3e}, CPU "
+        f"plain {itc} steps rel {relc:.3e}, max rel diff of U {err:.3e}")
+    if not (err <= 1e-8 and relg <= 1e-10 and abs(itg - itc) <= 1):
+        raise SystemExit("star T-spline small-input reference FAILED")
 
 
 # -- the generic form path: B5 (K12) under refinement, B9b (K11) -------------
@@ -1984,6 +2186,10 @@ RK_JAX_NEWTON = 7
 # CG iterations of the card-vs-CPU references (the CPU runs apply the AD
 # shell action eagerly, ~0.1 s a call)
 RK_REF_CG = 10
+# CG iterations of the profiled correction: a quarter of the demo's 40, to
+# keep the script inside its time limit (an iteration is tens of thousands
+# of device ops, each a profiler event to process)
+RK_PROF_CG = 10
 RK_TOL = {"f64": 1e-12, "f32": 1e-5, "ref": 1e-10}
 
 
@@ -2127,13 +2333,16 @@ def reef_knot_path(device, rec):
         if not (ng == nc and d <= RK_TOL["ref"]):
             raise SystemExit(f"reef-knot card-vs-CPU reference FAILED "
                              f"(NEL={nel})")
+    t0 = time.perf_counter()
     profile_reef_knot_cg(U, device)
+    say(f"reef-knot CG profile took {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] for k in ("contact_residual", "contact_tangent")}
 
 
 def profile_reef_knot_cg(U, device):
-    """Phase 12, step 4: torch.profiler over one Newton correction's CG
-    (40 f32 iterations, the V-cycle, K14) at the state after the step:
+    """Phase 12, step 4: torch.profiler over the first RK_PROF_CG f32
+    iterations of a Newton correction's CG (the V-cycle, K14) at the state
+    after the step:
     device busy share, K14's share, and the f32 AD shell actions' share
     (their CUDA-event time a call, one graph replay at a time, times the
     calls the CG made)."""
@@ -2159,7 +2368,7 @@ def profile_reef_knot_cg(U, device):
         rk.M._actions[lev] = counted(lev, fn)
 
     def solve():
-        return cg_device_iters(A, r, rk.cg_iters, M=M)[0]
+        return cg_device_iters(A, r, RK_PROF_CG, M=M)[0]
 
     wall = best_of_3(solve)
     for i in range(len(calls)):
@@ -2191,13 +2400,13 @@ def profile_reef_knot_cg(U, device):
         + ("complete" if ok else "NOT a measurement, the shares below "
            "are not measured"))
     # the fine shell action runs once more a CG iteration inside A
-    calls[0] += rk.cg_iters + 1
+    calls[0] += RK_PROF_CG + 1
     per = []
     for lev, fn in enumerate(shells):
         W = torch.randn(rk.M.levels[lev]["dinv"].shape[0], device=device)
         per.append(cuda_ms(lambda fn=fn, W=W: fn(W), 5))
     shell = sum(c * t for c, t in zip(calls, per))
-    say(f"profile reef-knot CG ({rk.cg_iters} f32 iterations at the state "
+    say(f"profile reef-knot CG ({RK_PROF_CG} f32 iterations at the state "
         f"after step 1): device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
         f"un-profiled wall (busy share {busy / wall / 1e3:.3f}); K14 "
         f"{k14:.3f} ms ({k14 / busy:.3f} of busy); f32 AD shell actions "
@@ -2301,6 +2510,72 @@ def sf_jets_bytes(layout, dt, with_jets=True):
         njets * es
 
 
+def jets_flat(jets):
+    """The jets (val, g, h or None) of a layout as one flat vector."""
+    return torch.cat([x.reshape(-1) for x in jets if x is not None])
+
+
+def jets_csr(layout):
+    """K15's linear map W -> jets (``jets_flat`` order) of an f64 layout as
+    one torch.sparse CSR matrix J, and J^T (K16's map) as another: the
+    library yardstick of K15/K16.  Columns are probed in colors (each
+    coefficient's grid index modulo the window width pp in every
+    direction, so no output reads two coefficients of one color): a probe
+    with the color's indicator gives the entries, one weighted by column
+    index + 1 gives their columns."""
+    from tigar_tpu_torch.ops.sumfac_forms import jets_plain
+    dev = layout.groups[0].plan.tabs[0].device
+    color = torch.full((layout.n,), -1, dtype=torch.int64, device=dev)
+    for g in layout.groups:
+        ncp_d = g.plan.ncp_d
+        pp = [m[4] for m in g.plan.metas]
+        idx = torch.arange(g.plan.ncp, device=dev)
+        c, rest, mult = torch.zeros_like(idx), idx, 1
+        for n_d, p_d in zip(ncp_d, pp):
+            c = c + (rest % n_d % p_d) * mult
+            rest, mult = rest // n_d, mult * p_d
+        for k in range(g.ncols):
+            color[g.base + k * g.col_stride + idx * g.cp_stride] = c
+    pos = torch.arange(1, layout.n + 1, dtype=torch.float64, device=dev)
+    rows, cols, vals = [], [], []
+    for k in range(int(color.max()) + 1):
+        w = (color == k).to(torch.float64)
+        y1, y2 = jets_flat(jets_plain(w, layout)), \
+            jets_flat(jets_plain(w * pos, layout))
+        nz = torch.nonzero(y1).reshape(-1)
+        rows.append(nz)
+        cols.append(torch.round(y2[nz] / y1[nz]).long() - 1)
+        vals.append(y1[nz])
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    m = int(jets_flat(jets_plain(torch.zeros(layout.n, dtype=torch.float64,
+                                             device=dev), layout)).numel())
+    J = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                (m, layout.n)).coalesce().to_sparse_csr()
+    Jt = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals,
+                                 (layout.n, m)).coalesce().to_sparse_csr()
+    return J, Jt
+
+
+def jets_library(entry, A, x, ref, reps, what):
+    """The library yardstick of a K15/K16 record: ``A @ x`` (one
+    torch.sparse CSR product) against the plain version's ``ref``, its
+    CUDA-event time and, right away, its profiler device time."""
+    err = float((A @ x - ref).abs().max() / ref.abs().max())
+    entry["library_ms"] = cuda_ms(lambda A=A, x=x: A @ x, reps)
+    entry["library_dev_ms"], got, few = library_device_ms(
+        lambda A=A, x=x: A @ x, reps)
+    dev = ("not measured (sessions of 10 and "
+           f"{reps} calls recorded {few:g} and {got:g} events a call)"
+           if entry["library_dev_ms"] is None
+           else f"{entry['library_dev_ms']:.4f} ms")
+    say(f"    library yardstick {what}: torch.sparse CSR @ ({A._nnz()} "
+        f"entries, {A.shape[0]} x {A.shape[1]}) {entry['library_ms']:.4f} "
+        f"ms, device {dev}, rel diff {err:.1e}")
+    if not err <= SF_TOL["f32" if A.dtype == torch.float32 else "f64"]:
+        raise SystemExit(f"the CSR yardstick of {what} computes another "
+                         f"map: rel diff {err:.3e}")
+
+
 def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
     """Phase 13, step 1 (with phase 2's kernel checks, before the main
     paths' profiler sessions): K15/K16 against their plain versions in f64
@@ -2315,6 +2590,12 @@ def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
                                    poisson_asm):
         W64 = torch.as_tensor(rng.normal(size=lay64.n), device=device)
         full = "fields" in label or "poisson" in label
+        if full:
+            t0 = time.perf_counter()
+            J64, Jt64 = jets_csr(lay64)
+            say(f"K15/K16 yardstick {label}: J {tuple(J64.shape)}, "
+                f"{J64._nnz()} entries, built in "
+                f"{time.perf_counter() - t0:.2f} s")
         for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
             lay = lay64 if dt == torch.float64 else lay64.cast(dt)
             W = W64.to(dt)
@@ -2346,6 +2627,10 @@ def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
                               len(lay.groups))
             rec["sumfac_jets"].append(entry)
             probe_device_time(entry)
+            if full:
+                J = J64 if dt == torch.float64 else J64.to(dt)
+                jets_library(entry, J, W, jets_flat(jp), 20,
+                             f"K15 {tag} {label} (J @ W)")
             compare(f"K16 sumfac_scatter_jets {tag} {label}",
                     lambda c=cot, l=lay: sf.scatter_jets_cuda(c, l),
                     lambda c=cot, l=lay: sf.scatter_jets_plain(c, l),
@@ -2355,6 +2640,11 @@ def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
                     work=(sf_jets_bytes(lay, dt), 0.0, dt),
                     per_call=len(lay.groups))
             probe_device_time(rec["sumfac_scatter_jets"][-1])
+            if full:
+                Jt = Jt64 if dt == torch.float64 else Jt64.to(dt)
+                jets_library(rec["sumfac_scatter_jets"][-1], Jt,
+                             jets_flat(cot), sf.scatter_jets_plain(cot, lay),
+                             20, f"K16 {tag} {label} (J^T @ F)")
 
 
 def sumfac_forms_path(device, shell_spline, shell_asm, poisson_sp,
@@ -2537,6 +2827,21 @@ def main():
         f"{sf_pasm.nq_total} points): {time.time() - t13:.2f} s")
     sumfac_kernel_phases(device, ns.spline, sf_shell, sf_pasm, rec)
     t13 = time.time() - t13
+    # phase 14, step 1: K1, K2's element mode, K10 and K11 at the star
+    # T-spline's shapes and on a ragged extraction
+    from tigar_tpu_torch.demos import star_tspline_shell as star_demo
+    t14 = time.time()
+    ns_ts = star_demo.build(TS_NEL, device)
+    ts_ragged = star_demo.ragged_spline(device)
+    torch.cuda.synchronize()
+    say(f"star T-spline setup (make_star_extraction(3, {TS_NEL}), the Rhino "
+        f"file written and read back, boundary_dofs, SANewton): "
+        f"{time.time() - t14:.2f} s; {ns_ts.spline.ndof} DoFs, "
+        f"{ns_ts.asm64.nel} elements; ragged extraction "
+        f"{ts_ragged.ndof} DoFs, functions an element "
+        f"{sorted(set(ts_ragged._assembler('dx').masks[0].sum(1).long().tolist()))}")
+    setup_ts = ts_kernel_phases(ns_ts, ts_ragged, rec)
+    t14 = time.time() - t14
 
     # -- the shell main path: warm steps, then the solve with every launch
     # count reset just before it and read just after -----------------------
@@ -2645,6 +2950,20 @@ def main():
     launches.update(by_path["sumfac_forms"])
     t13 += time.time() - t0
 
+    # -- phase 14, step 2: the star-T-spline point (bench._tspline_point)
+    # through the demo's entry point, counts reset around its solve -------
+    t0 = time.time()
+    _, l_ts = ts_main_path(ns_ts, setup_ts)
+    by_path["star_tspline"] = {
+        k: l_ts[k] for k in ("shell_residual", "tangent_elements",
+                             "elem_tangent_apply", "ell_spmv")}
+    for k, kk in zip(("shell_residual", "tangent_elements",
+                      "elem_tangent_apply", "ell_spmv"),
+                     ("shell_residual_bicubic",) + TS_KEYS):
+        launches[kk] = by_path["star_tspline"][kk] = l_ts[k]
+    del ns_ts
+    t14 += time.time() - t0
+
 
     # -- where the time goes (after the main paths' counts) -----------------
     kernel_device_times(rec)
@@ -2706,6 +3025,10 @@ def main():
     sumfac_reference(device)
     t13 += time.time() - t0
     say(f"phase 13 (sum-factorized forms) took {t13:.1f} s")
+    t0 = time.time()
+    ts_reference(device)
+    t14 += time.time() - t0
+    say(f"phase 14 (star T-spline) took {t14:.1f} s")
 
     poisson_checks(device, pb, err96)
 
@@ -2745,7 +3068,18 @@ def main():
            "sumfac_jets": ("tigar_tpu_torch/csrc/sumfac_jets.cu",
                            "tigar_tpu/ops/sumfac_forms.py:189"),
            "sumfac_scatter_jets": ("tigar_tpu_torch/csrc/sumfac_jets.cu",
-                                   "tigar_tpu/ops/sumfac_forms.py:319")}
+                                   "tigar_tpu/ops/sumfac_forms.py:319"),
+           "shell_residual_bicubic": (
+               "tigar_tpu_torch/csrc/shell_residual.cu",
+               "tigar_tpu/ops/assembly.py:342"),
+           "tangent_elements_bicubic": (
+               "tigar_tpu_torch/csrc/tangent_stencil.cu",
+               "tigar_tpu/solvers/newton_sa.py:297"),
+           "elem_tangent_apply_nloc48": (
+               "tigar_tpu_torch/csrc/elem_tangent.cu",
+               "tigar_tpu/solvers/newton_sa.py:132"),
+           "ell_spmv_star": ("tigar_tpu_torch/csrc/ell_spmv.cu",
+                             "tigar_tpu/solvers/aggregation.py:356")}
     # times at the main paths' shapes: K1 f32, K2 f32 at the reduced rule,
     # K3 f32 Jacobi sweep on the fine grid, K4 f32 at the V-cycle's fine
     # level (336 of the solve's 357 launches)
@@ -2762,7 +3096,11 @@ def main():
             "ell_spmv_twolevel": "two-level A jacobi",
             "contact_residual": "f64 (a)", "contact_tangent": "f32 (a)",
             "sumfac_jets": f"f64 shell fields {NEL}^2",
-            "sumfac_scatter_jets": f"f64 shell fields {NEL}^2"}
+            "sumfac_scatter_jets": f"f64 shell fields {NEL}^2",
+            "shell_residual_bicubic": "f64 nq=16 nen=16 star",
+            "tangent_elements_bicubic": "f32 nq=9 star",
+            "elem_tangent_apply_nloc48": "masked f32",
+            "ell_spmv_star": "P apply f32 level 0"}
     kernels = []
     for name, phases in rec.items():
         timed = [p for p in phases if pick[name] in p["name"]][0]

@@ -3,7 +3,9 @@ twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
 small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
 element range and K5-K9 on the small two-patch plate and the three-patch
 L of the CPU tests; K2's element mode, K10 and K11, and the SANewton path
-through them, on the nel=8 plate; K12 on small 2D/3D Poisson splines and
+through them, on the nel=8 plate; K1 and K2's element mode at 48 local
+functions (9 and 16 points) on the small star T-spline and a ragged
+extraction, and the star's SANewton solve through them; K12 on small 2D/3D Poisson splines and
 the two-level SA cycle through K11, with the generic form path's
 refinement and sa_cg solves through them; K13/K14 on contact strips of
 36, 1,024 and 1,089 points, and the reef-knot demo's step at NEL=6
@@ -678,6 +680,102 @@ def test_sa_kernels_refuse_what_they_cannot_take(cuda):
         asm.element_matrices_adjoint(DENSITY, _state(spline),
                                      me=torch.ones((2, 27), device=cuda,
                                                    dtype=torch.float64))
+
+
+# -- K1 and K2's element mode at bicubic extraction elements (T-splines) ----
+
+
+def _tspline_asm(case, device, quad_degree=None):
+    """The shell assembler of a T-spline case: the star of
+    make_star_extraction(3, 4) (every element 16 functions, a mask of
+    ones), the same with the mask dropped, or the ragged file of
+    tests/test_tsplines.py:144 (padded elements)."""
+    from tigar_tpu_torch.demos import star_tspline_shell as demo
+    sp = (demo.ragged_spline(device) if case == "ragged"
+          else demo.star_spline(4, device))
+    asm = sp._assembler("dx", quad_degree=quad_degree)
+    if case == "star-unmasked":
+        asm = asm._map_tensors(lambda x: x)
+        asm.masks = [None] * 3
+    return sp, asm
+
+
+TS_CASES = ["star", "star-unmasked", "ragged"]
+TS_DENSITY = SVKShellAdjoint(3.0e4, 0.3, 0.03, load=(0.0, 0.0, -0.4))
+
+
+@pytest.mark.parametrize("case", TS_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_shell_residual_kernel_bicubic(cuda, case, dtype, tol):
+    sp, asm = _tspline_asm(case, cuda)
+    asm = asm.astype(dtype)
+    assert asm.nens == (16, 16, 16) and asm.nq == 16
+    U = _state(sp, amp=0.01).to(dtype)
+    cuda_ext.reset_counts()
+    r_k = asm.residual_vector_adjoint(TS_DENSITY, U)
+    assert cuda_ext.counts()["shell_residual"] == 1
+    r_t = residual_vector_adjoint_ref(asm, TS_DENSITY, U)
+    torch.cuda.synchronize()
+    assert _rel(r_k, r_t) <= tol
+
+
+@pytest.mark.parametrize("case", TS_CASES)
+@pytest.mark.parametrize("quad_degree", [4, None], ids=["nq9", "nq16"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+def test_tangent_elements_kernel_bicubic(cuda, case, quad_degree, dtype,
+                                         tol):
+    from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
+    sp, asm = _tspline_asm(case, cuda, quad_degree)
+    asm = asm.astype(dtype)
+    U = _state(sp, amp=0.01).to(dtype)
+    me = sp.mask.to(dtype)[asm.cat_conn]
+    if asm.masks[0] is not None:
+        me = me * asm.masks[0].repeat(1, 3)
+    cuda_ext.reset_counts()
+    E_k = asm.element_matrices_adjoint(TS_DENSITY, U, me=me)
+    assert cuda_ext.counts()["tangent_elements"] == 1
+    E_t = element_matrices_adjoint_ref(asm, TS_DENSITY, U, me)
+    torch.cuda.synchronize()
+    assert E_k.shape == (asm.nel, 48, 48) and E_k.dtype == dtype
+    assert _rel(E_k, E_t) <= tol
+    if case == "ragged":
+        assert float(E_k[asm.masks[0].repeat(1, 3) == 0].abs().max()) == 0.0
+
+
+def test_tspline_kernels_refuse_what_they_cannot_take(cuda):
+    """The stencil fold refuses bicubic elements; K2's element mode
+    refuses more than 16 points; nothing falls back to the plain
+    versions."""
+    from tigar_tpu_torch.ops.assembly import element_matrices_cuda
+    from tigar_tpu_torch.ops.stencil import build_stencil_cuda
+    sp, asm = _tspline_asm("star", cuda)
+    U = _state(sp)
+    with pytest.raises(ValueError, match="got 16"):
+        build_stencil_cuda(asm, TS_DENSITY, U, None, 3)
+    with pytest.raises(ValueError, match="got 25"):
+        element_matrices_cuda(sp._assembler("dx", quad_degree=8),
+                              TS_DENSITY, U)
+
+
+def test_star_sanewton_runs_through_kernels(cuda):
+    """SANewton on the star shell at nel=4 (the bench's options plus
+    coarse_size=50) through K1, K2's element mode, K10 and K11, against the
+    CPU plain versions: steps within 1, U within 1e-8."""
+    from tigar_tpu_torch.demos import star_tspline_shell as demo
+    kw = {"coarse_size": 50}
+    ns_g, ns_c = (demo.build(4, d, kw) for d in (cuda, "cpu"))
+    cuda_ext.reset_counts()
+    Ug, relg, itg, dUg = ns_g.solve(rtol=demo.RTOL)
+    c = cuda_ext.counts()
+    for k in ("shell_residual", "tangent_elements", "elem_tangent_apply",
+              "ell_spmv"):
+        assert c[k] > 0, k
+    Uc, relc, itc, _ = ns_c.solve(rtol=demo.RTOL)
+    assert abs(itg - itc) <= 1 and relg <= 1e-10
+    assert _rel(Ug.cpu(), Uc) <= 1e-8
+    assert demo.certify(ns_g, Ug, relg, dUg)[2]
 
 
 # -- K12 and the generic form path --------------------------------------------

@@ -11,8 +11,10 @@ matrix-free 3D Poisson solve (sum-factorized operators, fixed-iteration
 CG, a geometric V-cycle, mixed-precision refinement); and the generic
 linear form path (per-point densities assembled with torch.func,
 ExtractedSpline's linear solvers, the f32 fast-path apply, two-level and
-multilevel smoothed-aggregation CG).  Twelve hand-written CUDA kernels
-(``csrc/``, K1-K12) carry the device work.  Each has a plain PyTorch
+multilevel smoothed-aggregation CG); penalty self-contact;
+sum-factorized forms; and the Rhino Bezier-extraction T-splines with the
+star-T-spline shell point.  Sixteen hand-written CUDA kernels (``csrc/``,
+K1-K16) carry the device work.  Each has a plain PyTorch
 twin in the same module; tensors on the CPU go to the twin, CUDA tensors
 to the kernel.  Entry points put their tensors on the card unless the
 caller asks for the CPU.

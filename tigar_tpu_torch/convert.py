@@ -7,6 +7,7 @@ no jax import here) — into a dict of numpy arrays:
     conn [nel, nen] int32 (the shared scalar-basis connectivity),
     cat_conn [nel, nf*nen], offsets, ndof,
     N [nel, nq, nen], dN [.., d], d2N [.., d, d], scale [nel, nq],
+    mask [nel, nen] (the padding mask of a ragged basis) or None,
     DF [nel, nq, nsd, d], d2F [.., d, d],
     shell_ref_a / shell_ref_b / shell_ref_ea [nel, nq, 2, 2]
 
@@ -23,7 +24,9 @@ sides' SideData, wq, nu, w_param, surfJ, params), ``mlsa_arrays``/
 ``point_contact_arrays``/``point_contact_from_numpy`` the state of a
 penalty contact (points, evaluation rows, weights, pair mask) and
 ``sumfac_assembler_arrays``/``sumfac_assembler_from_numpy`` a
-sum-factorized assembler (1D tables, windows, ctx leaves, scale).
+sum-factorized assembler (1D tables, windows, ctx leaves, scale) and
+``tspline_arrays``/``tspline_from_numpy`` a T-spline extraction (nodes,
+operators, ncp) with its homogeneous control net.
 Tests use them to feed
 identical inputs to the JAX functions and to this package's kernels and
 twins, independent of either package's own preprocessing.
@@ -53,10 +56,12 @@ def assembler_arrays(asm):
     """numpy arrays of an equal-order shell volume assembler (see module
     docstring).  Raises unless all fields share one tabulation."""
     for f in range(1, asm.nfields):
-        for name in ("conns", "Ns", "dNs", "d2Ns"):
-            if not np.array_equal(_np(getattr(asm, name)[f]),
-                                  _np(getattr(asm, name)[0])):
+        for name in ("conns", "Ns", "dNs", "d2Ns", "masks"):
+            a, b = getattr(asm, name)[f], getattr(asm, name)[0]
+            if (a is None) != (b is None) or (
+                    a is not None and not np.array_equal(_np(a), _np(b))):
                 raise ValueError("assembler_arrays needs equal-order fields")
+    mask = asm.masks[0]
     out = {
         "conn": _np(asm.conns[0]).astype(INDEX_TYPE),
         "cat_conn": _np(asm.cat_conn).astype(INDEX_TYPE),
@@ -64,6 +69,7 @@ def assembler_arrays(asm):
         "ndof": int(asm.ndof),
         "N": _np(asm.Ns[0]), "dN": _np(asm.dNs[0]), "d2N": _np(asm.d2Ns[0]),
         "scale": _np(asm.scale),
+        "mask": None if mask is None else _np(mask),
         "DF": _np(asm.ctx.DF), "d2F": _np(asm.ctx.d2F),
     }
     sref = (asm.ctx.aux or {}).get("shell_ref")
@@ -85,7 +91,8 @@ def assembler_from_numpy(arrays, device="cuda", dtype=torch.float64):
     nf = len(offsets) - 1
     tab = types.SimpleNamespace(conn=np.asarray(arrays["conn"]),
                                 N=arrays["N"], dN=arrays["dN"],
-                                d2N=arrays["d2N"], mask=None)
+                                d2N=arrays["d2N"],
+                                mask=arrays.get("mask"))
     aux = None
     if "shell_ref_a" in arrays:
         aux = {"shell_ref": ShellReference(a=t("shell_ref_a"),
@@ -400,3 +407,23 @@ def sumfac_assembler_from_numpy(arrays, device="cuda", dtype=torch.float64):
     ctx = QP(**{k: t(v) for k, v in arrays["ctx"].items()}, aux=aux)
     return SumfacAssembler(plans, arrays["offsets"], arrays["ndof"], ctx,
                            t(arrays["scale"]))
+
+
+def tspline_arrays(basis, bnet):
+    """numpy arrays of a T-spline extraction (this package's TSplineBasis or
+    tigar_tpu's): the per-element node lists and [nshl, 16] extraction
+    operators, ncp, and the homogeneous control net bnet [ncp, 4]."""
+    return {"nodes_list": [np.asarray(n, dtype=np.int64)
+                           for n in basis.nodes_list],
+            "ops_list": [np.asarray(C, dtype=np.float64)
+                         for C in basis.ops_list],
+            "ncp": int(basis.ncp), "bnet": np.asarray(bnet, np.float64)}
+
+
+def tspline_from_numpy(arrays):
+    """(TSplineBasis, bnet) of this package from ``tspline_arrays``
+    output."""
+    from .models.tsplines import TSplineBasis
+    basis = TSplineBasis(nodes_list=arrays["nodes_list"],
+                         ops_list=arrays["ops_list"], ncp=arrays["ncp"])
+    return basis, np.array(arrays["bnet"], dtype=np.float64)

@@ -35,9 +35,10 @@ void check_launch(cudaError_t err, const char* name) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// the per-point shell data shared by K1 and K2
+// the per-point shell data shared by K1 and K2: nen = 9 (biquadratic) or
+// 16 (bicubic extraction element) local functions a field, read from N
 struct ShellArgs {
-  int64_t nel, nq;
+  int64_t nel, nq, nen;
 };
 
 ShellArgs check_shell(const torch::Tensor& U, const torch::Tensor& conn,
@@ -50,11 +51,15 @@ ShellArgs check_shell(const torch::Tensor& U, const torch::Tensor& conn,
   check_float(dt);
   TORCH_CHECK(scale.dim() == 2, "scale must be [nel, nq]");
   const int64_t nel = scale.size(0), nq = scale.size(1);
+  TORCH_CHECK(N.dim() == 3, "N must be [nel, nq, nen]");
+  const int64_t nen = N.size(2);
+  TORCH_CHECK(nen == 9 || nen == 16, "the shell kernels take 9 or 16 "
+              "local functions a field, got ", nen);
   check(U, "U", dt, {U.size(0)});
-  check(conn, "conn", torch::kInt, {nel, 27});
-  check(N, "N", dt, {nel, nq, 9});
-  check(dN, "dN", dt, {nel, nq, 9, 2});
-  check(d2N, "d2N", dt, {nel, nq, 9, 2, 2});
+  check(conn, "conn", torch::kInt, {nel, 3 * nen});
+  check(N, "N", dt, {nel, nq, nen});
+  check(dN, "dN", dt, {nel, nq, nen, 2});
+  check(d2N, "d2N", dt, {nel, nq, nen, 2, 2});
   check(scale, "scale", dt, {nel, nq});
   check(DF, "DF", dt, {nel, nq, 3, 2});
   check(d2F, "d2F", dt, {nel, nq, 3, 2, 2});
@@ -62,7 +67,16 @@ ShellArgs check_shell(const torch::Tensor& U, const torch::Tensor& conn,
   check(rb, "ref_b", dt, {nel, nq, 2, 2});
   check(ea, "ea", dt, {nel, nq, 2, 2});
   TORCH_CHECK(nel * nq < (int64_t(1) << 31), "too many quadrature points");
-  return {nel, nq};
+  return {nel, nq, nen};
+}
+
+// the padding mask of ragged elements, [nel, nen] of U's type, or none
+template <typename T>
+const T* shell_mask(const std::optional<torch::Tensor>& mask,
+                    const ShellArgs& a, torch::ScalarType dt) {
+  if (!mask) return nullptr;
+  check(*mask, "mask", dt, {a.nel, a.nen});
+  return mask->data_ptr<T>();
 }
 
 template <typename T>
@@ -77,8 +91,9 @@ torch::Tensor shell_residual(torch::Tensor U, torch::Tensor conn,
                              torch::Tensor d2N, torch::Tensor scale,
                              torch::Tensor DF, torch::Tensor d2F,
                              torch::Tensor ra, torch::Tensor rb,
-                             torch::Tensor ea, std::vector<double> consts,
-                             int64_t ndof) {
+                             torch::Tensor ea,
+                             std::optional<torch::Tensor> mask,
+                             std::vector<double> consts, int64_t ndof) {
   const auto a = check_shell(U, conn, N, dN, d2N, scale, DF, d2F, ra, rb, ea);
   TORCH_CHECK(consts.size() == 7, "shell_residual takes 7 constants");
   TORCH_CHECK(U.size(0) == ndof, "U has ", U.size(0), " entries, ndof ",
@@ -89,16 +104,20 @@ torch::Tensor shell_residual(torch::Tensor U, torch::Tensor conn,
   cudaError_t err;
   if (U.scalar_type() == torch::kFloat) {
     using T = float;
+    const T* m = shell_mask<T>(mask, a, U.scalar_type());
     err = tigar::shell_residual_launch<T>(
-        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N), ptr<T>(dN),
-        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
-        ptr<T>(rb), ptr<T>(ea), consts.data(), r.data_ptr<T>(), stream);
+        a.nel, a.nq, a.nen, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N),
+        ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), m, consts.data(),
+        r.data_ptr<T>(), stream);
   } else {
     using T = double;
+    const T* m = shell_mask<T>(mask, a, U.scalar_type());
     err = tigar::shell_residual_launch<T>(
-        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N), ptr<T>(dN),
-        ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
-        ptr<T>(rb), ptr<T>(ea), consts.data(), r.data_ptr<T>(), stream);
+        a.nel, a.nq, a.nen, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(N),
+        ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), m, consts.data(),
+        r.data_ptr<T>(), stream);
   }
   check_launch(err, "shell_residual");
   return r;
@@ -123,6 +142,8 @@ torch::Tensor tangent_stencil(torch::Tensor U, torch::Tensor conn,
                   grid_shape[1] == nel_shape[1] + 2,
               "grid ", c10::IntArrayRef(grid_shape),
               " is not the p=2 grid of ", c10::IntArrayRef(nel_shape));
+  TORCH_CHECK(a.nen == 9, "tangent_stencil folds biquadratic elements "
+              "(9 local functions a field), got ", a.nen);
   TORCH_CHECK(a.nq >= 1 && a.nq <= 9, "tangent_stencil takes at most 9 "
               "quadrature points, got ", a.nq);
   const c10::cuda::CUDAGuard guard(U.device());
@@ -154,31 +175,36 @@ torch::Tensor tangent_elements(torch::Tensor U, torch::Tensor conn,
                                torch::Tensor d2N, torch::Tensor scale,
                                torch::Tensor DF, torch::Tensor d2F,
                                torch::Tensor ra, torch::Tensor rb,
-                               torch::Tensor ea, std::vector<double> consts,
+                               torch::Tensor ea,
+                               std::optional<torch::Tensor> mask,
+                               std::vector<double> consts,
                                std::optional<torch::Tensor> me) {
   const auto a = check_shell(U, conn, N, dN, d2N, scale, DF, d2F, ra, rb, ea);
   TORCH_CHECK(consts.size() == 4, "tangent_elements takes 4 constants");
-  TORCH_CHECK(a.nq >= 1 && a.nq <= 9, "tangent_elements takes at most 9 "
+  TORCH_CHECK(a.nq >= 1 && a.nq <= 16, "tangent_elements takes at most 16 "
               "quadrature points, got ", a.nq);
-  if (me) check(*me, "me", U.scalar_type(), {a.nel, 27});
+  const int64_t nloc = 3 * a.nen;
+  if (me) check(*me, "me", U.scalar_type(), {a.nel, nloc});
   const c10::cuda::CUDAGuard guard(U.device());
-  auto E = torch::empty({a.nel, 27, 27}, U.options());
+  auto E = torch::empty({a.nel, nloc, nloc}, U.options());
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
   cudaError_t err;
   if (U.scalar_type() == torch::kFloat) {
     using T = float;
+    const T* m = shell_mask<T>(mask, a, U.scalar_type());
     err = tigar::tangent_elements_launch<T>(
-        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
+        a.nel, a.nq, a.nen, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
         ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
-        ptr<T>(rb), ptr<T>(ea), consts.data(), me ? ptr<T>(*me) : nullptr,
-        E.data_ptr<T>(), stream);
+        ptr<T>(rb), ptr<T>(ea), m, consts.data(),
+        me ? ptr<T>(*me) : nullptr, E.data_ptr<T>(), stream);
   } else {
     using T = double;
+    const T* m = shell_mask<T>(mask, a, U.scalar_type());
     err = tigar::tangent_elements_launch<T>(
-        a.nel, a.nq, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
+        a.nel, a.nq, a.nen, conn.data_ptr<int>(), ptr<T>(U), ptr<T>(dN),
         ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F), ptr<T>(ra),
-        ptr<T>(rb), ptr<T>(ea), consts.data(), me ? ptr<T>(*me) : nullptr,
-        E.data_ptr<T>(), stream);
+        ptr<T>(rb), ptr<T>(ea), m, consts.data(),
+        me ? ptr<T>(*me) : nullptr, E.data_ptr<T>(), stream);
   }
   check_launch(err, "tangent_elements");
   return E;

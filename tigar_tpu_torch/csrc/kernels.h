@@ -34,14 +34,16 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes,
   return e;
 }
 
-// K1: SVK shell residual, one thread per quadrature point.
+// K1: SVK shell residual, one thread per quadrature point, nen = 9 or 16
+// local functions a field (conn [nel][3 nen]); mask [nel][nen] (padding
+// of ragged elements) or nullptr.
 // consts = {lam_ps, 2 mu, h, h^3/12, load0, load1, load2}.
 template <typename T>
-cudaError_t shell_residual_launch(int nel, int nq, const int* conn,
+cudaError_t shell_residual_launch(int nel, int nq, int nen, const int* conn,
                                   const T* U, const T* N, const T* dN,
                                   const T* d2N, const T* scale, const T* DF,
                                   const T* d2F, const T* ref_a,
-                                  const T* ref_b, const T* ea,
+                                  const T* ref_b, const T* ea, const T* mask,
                                   const double* consts, T* r,
                                   cudaStream_t stream);
 
@@ -56,17 +58,20 @@ cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
                                    const double* consts, int ncp_y,
                                    int ncp_x, T* S, cudaStream_t stream);
 
-// K2, element mode: the same element matrices written to E [nel][27][27]
-// (every entry written, no initialisation), entry (row, col) times me[e][row]
-// me[e][col] when me [nel][27] is given.
+// K2, element mode: the element matrices of nen = 9 or 16 local functions
+// a field (1 <= nq <= 16) written to E [nel][3 nen][3 nen] (every entry
+// written, no initialisation); entry ((f,a),(g,b)) times mask[e][a]
+// mask[e][b] when the padding mask [nel][nen] is given, and times
+// me[e][row] me[e][col] when me [nel][3 nen] is given.
 template <typename T>
-cudaError_t tangent_elements_launch(int nel, int nq, const int* conn,
-                                    const T* U, const T* dN, const T* d2N,
+cudaError_t tangent_elements_launch(int nel, int nq, int nen,
+                                    const int* conn, const T* U,
+                                    const T* dN, const T* d2N,
                                     const T* scale, const T* DF,
                                     const T* d2F, const T* ref_a,
                                     const T* ref_b, const T* ea,
-                                    const double* consts, const T* me, T* E,
-                                    cudaStream_t stream);
+                                    const T* mask, const double* consts,
+                                    const T* me, T* E, cudaStream_t stream);
 
 // K3: stencil apply.  mode 0: y = A x; 1: y = b - A x;
 // 2: y = x + (omega dinv) (b - A x); A is masked when mask != nullptr.

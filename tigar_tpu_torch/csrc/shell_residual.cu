@@ -6,24 +6,27 @@
 // tigar_tpu/models/shell.py:svk_shell_adjoint, which the JAX package runs
 // as XLA-fused einsums over [nel, nq] batches.
 //
-// One thread per (element, quadrature point): gather the 27 local
-// coefficients (3 fields x 9 biquadratic functions), form the jets
+// One thread per (element, quadrature point): gather the 3 NEN local
+// coefficients (3 fields x NEN functions a field: 9 on a biquadratic
+// B-spline element, 16 on a bicubic extraction element), form the jets
 // G = DF + u.g and H = d2F + u.h, evaluate the adjoint jet (plus the
 // constant load on Fval), contract it with scale x (N, dN, d2N) and
-// atomically add the 27 contributions into r.
+// atomically add the 3 NEN contributions into r.  With a padding mask
+// [nel, NEN] (ragged T-spline elements: padded slots carry connectivity 0
+// and mask 0), each gathered coefficient and each contribution is
+// multiplied by its slot's mask, so a padded slot adds nothing.
 //
 // Bound: device-memory reads of the per-point tabulation and geometry
-// (94 values per point: N 9, dN 18, d2N 36, DF 6, d2F 12, reference frame
-// 12, scale 1), about 0.75 KB per point in f64.  The design reads each
-// once, coalesced across the threads of a warp (consecutive points), keeps
-// every intermediate in registers, and never writes the [nel, 27] element
-// vectors: the atomics add straight into r.
+// (7 NEN + 31 values per point: N, dN, d2N, DF 6, d2F 12, reference frame
+// 12, scale 1; 94 at NEN 9, 143 at NEN 16).  The design reads each once,
+// keeps every intermediate in registers, and never writes the [nel, 3 NEN]
+// element vectors: the atomics add straight into r.
 #include "kernels.h"
 #include "svk_adjoint.cuh"
 
 namespace tigar {
 
-template <typename T>
+template <typename T, int NEN, bool MASKED>
 __global__ void __launch_bounds__(128)
 shell_residual_kernel(int npt, int nq, const int* __restrict__ conn,
                       const T* __restrict__ U, const T* __restrict__ N,
@@ -32,15 +35,17 @@ shell_residual_kernel(int npt, int nq, const int* __restrict__ conn,
                       const T* __restrict__ d2F,
                       const T* __restrict__ ref_a,
                       const T* __restrict__ ref_b,
-                      const T* __restrict__ ea, ShellConst<T> k, T l0, T l1,
-                      T l2, T* __restrict__ r) {
+                      const T* __restrict__ ea,
+                      const T* __restrict__ mask, ShellConst<T> k, T l0,
+                      T l1, T l2, T* __restrict__ r) {
   const int pt = blockIdx.x * blockDim.x + threadIdx.x;
   if (pt >= npt) return;
   const int e = pt / nq;
-  const int* ce = conn + (size_t)e * 27;
-  const T* Nq = N + (size_t)pt * 9;
-  const T* dNq = dN + (size_t)pt * 18;
-  const T* d2Nq = d2N + (size_t)pt * 36;
+  const int* ce = conn + (size_t)e * 3 * NEN;
+  const T* me = MASKED ? mask + (size_t)e * NEN : nullptr;
+  const T* Nq = N + (size_t)pt * NEN;
+  const T* dNq = dN + (size_t)pt * 2 * NEN;
+  const T* d2Nq = d2N + (size_t)pt * 4 * NEN;
 
   // jets of the state (the value part does not enter the SVK density)
   T g[3][2], h[3][2][2];
@@ -54,10 +59,11 @@ shell_residual_kernel(int npt, int nq, const int* __restrict__ conn,
     }
   }
 #pragma unroll
-  for (int a = 0; a < 9; ++a) {
+  for (int a = 0; a < NEN; ++a) {
+    const T m = MASKED ? me[a] : T(1);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const T c = U[ce[i * 9 + a]];
+      const T c = MASKED ? U[ce[i * NEN + a]] * m : U[ce[i * NEN + a]];
 #pragma unroll
       for (int d = 0; d < 2; ++d) {
         g[i][d] += dNq[a * 2 + d] * c;
@@ -98,7 +104,8 @@ shell_residual_kernel(int npt, int nq, const int* __restrict__ conn,
       sFh[i][d][1] = s * Fh[i][d][1];
     }
 #pragma unroll
-  for (int a = 0; a < 9; ++a) {
+  for (int a = 0; a < NEN; ++a) {
+    const T m = MASKED ? me[a] : T(1);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       T v = Fv[i] * Nq[a];
@@ -107,38 +114,49 @@ shell_residual_kernel(int npt, int nq, const int* __restrict__ conn,
       for (int d = 0; d < 2; ++d)
         v += sFh[i][d][0] * d2Nq[a * 4 + d * 2]
              + sFh[i][d][1] * d2Nq[a * 4 + d * 2 + 1];
-      atomicAdd(r + ce[i * 9 + a], v);
+      atomicAdd(r + ce[i * NEN + a], MASKED ? v * m : v);
     }
   }
 }
 
 template <typename T>
-cudaError_t shell_residual_launch(int nel, int nq, const int* conn,
+cudaError_t shell_residual_launch(int nel, int nq, int nen, const int* conn,
                                   const T* U, const T* N, const T* dN,
                                   const T* d2N, const T* scale, const T* DF,
                                   const T* d2F, const T* ref_a,
-                                  const T* ref_b, const T* ea,
+                                  const T* ref_b, const T* ea, const T* mask,
                                   const double* c, T* r,
                                   cudaStream_t stream) {
+  if (nen != 9 && nen != 16) return cudaErrorInvalidValue;
   const int npt = nel * nq;
   if (npt == 0) return cudaSuccess;
   ShellConst<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3])};
   const int threads = 128;
-  shell_residual_kernel<T><<<(npt + threads - 1) / threads, threads, 0,
-                             stream>>>(npt, nq, conn, U, N, dN, d2N, scale,
-                                       DF, d2F, ref_a, ref_b, ea, k,
-                                       T(c[4]), T(c[5]), T(c[6]), r);
+  const int blocks = (npt + threads - 1) / threads;
+  // the mask is a template parameter, so the unpadded kernels are the
+  // biquadratic kernel as it was, without a multiply by one a slot
+#define K1_LAUNCH(N_, M_)                                                  \
+  shell_residual_kernel<T, N_, M_><<<blocks, threads, 0, stream>>>(       \
+      npt, nq, conn, U, N, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, mask, \
+      k, T(c[4]), T(c[5]), T(c[6]), r)
+  if (nen == 9) {
+    if (mask) K1_LAUNCH(9, true); else K1_LAUNCH(9, false);
+  } else {
+    if (mask) K1_LAUNCH(16, true); else K1_LAUNCH(16, false);
+  }
+#undef K1_LAUNCH
   return cudaGetLastError();
 }
 
 template cudaError_t shell_residual_launch<float>(
-    int, int, const int*, const float*, const float*, const float*,
+    int, int, int, const int*, const float*, const float*, const float*,
     const float*, const float*, const float*, const float*, const float*,
-    const float*, const float*, const double*, float*, cudaStream_t);
-template cudaError_t shell_residual_launch<double>(
-    int, int, const int*, const double*, const double*, const double*,
-    const double*, const double*, const double*, const double*,
-    const double*, const double*, const double*, const double*, double*,
+    const float*, const float*, const float*, const double*, float*,
     cudaStream_t);
+template cudaError_t shell_residual_launch<double>(
+    int, int, int, const int*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*,
+    const double*, double*, cudaStream_t);
 
 }  // namespace tigar

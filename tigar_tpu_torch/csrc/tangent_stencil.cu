@@ -16,8 +16,8 @@
 //     nq * 18/ND threads share the Jacobians of the element.
 //  2. E[(f,a),(g,b)] = sum_q w_q sum_{s,t} phi_q[a][s] K_q[(f,s),(g,t)]
 //     phi_q[b][t], with phi the 6 derivative tabulations of a local
-//     function, from shared memory; one thread per entry of the 27 x 27
-//     element matrix.
+//     function, from shared memory; threads stride over the entries of
+//     the 27 x 27 element matrix (3 NEN x 3 NEN in element mode).
 //  3. Each entry is atomically added into S[f][g][by-ay+2][bx-ax+2]
 //     [ey+ay][ex+ax]; the [nel, 27, 27] element matrices never reach
 //     device memory.
@@ -26,14 +26,21 @@
 // space-agnostic Newton tier (tigar_tpu/solvers/newton_sa.py build_vals):
 // each entry, times the element BC mask me[e][row] me[e][col] when given,
 // is written to E[e][row][col] (plain stores, coalesced over the entry
-// index) instead of folded.
+// index) instead of folded.  The element mode takes NEN = 9 (biquadratic
+// B-spline) or 16 (bicubic extraction element, the T-spline path) local
+// functions a field, so E is [nel, 3 NEN, 3 NEN], and a padding mask
+// [nel, NEN] (ragged T-spline elements): the gathered coefficients are
+// multiplied by it, and entry ((f,a),(g,b)) by mask[a] mask[b].  The
+// stencil fold is for a tensor-product grid and stays biquadratic.
 //
 // Bound: arithmetic (dual-number passes through the adjoint and the
-// 27 x 27 x 36 nq contraction per element); reads are ~60 values per
-// point and the atomics touch 729 stencil entries per element.  The design
-// keeps K and the tabulations of the element in shared memory
-// (at most 9 points: 27.5 KB in f64) and splits the dual work into
-// 18/ND passes to bound registers.
+// 3 NEN x 3 NEN x 36 nq contraction per element); reads are 7 NEN + 31
+// values per point.  The design keeps K, the tabulations, the weights and
+// the gathered coefficients of the element in dynamic shared memory
+// (nq (324 + 6 NEN) + nq + 4 NEN values: 30.7 KB in f64 at 9 points and
+// NEN 9, 54.4 KB at 16 points and NEN 16, above the 48 KB a block gets
+// without opting in) and splits the dual work into 18/ND passes to bound
+// registers.
 #include "kernels.h"
 #include "svk_adjoint.cuh"
 
@@ -42,8 +49,16 @@ namespace tigar {
 constexpr int NS = 18;      // non-value jet slots: g (6) then h (12)
 constexpr int ND = 2;       // tangents per dual pass
 constexpr int NPASS = NS / ND;
-constexpr int MAXQ = 9;
+constexpr int MAXQ_STENCIL = 9;
+constexpr int MAXQ = 16;
 constexpr int THREADS = 96;
+
+// dynamic shared memory of one block: Ksh, phi, ssh, csh, msh
+template <typename T>
+size_t tangent_smem(int nq, int nen) {
+  return sizeof(T) * ((size_t)nq * NS * NS + (size_t)nq * nen * 6 + nq
+                      + 3 * nen + nen);
+}
 
 // jet slot of local derivative s (0..5: g0, g1, h00, h01, h10, h11) of
 // field f, in Jet ravel order without the 3 value slots
@@ -51,7 +66,7 @@ __device__ __forceinline__ int slot(int f, int s) {
   return s < 2 ? f * 2 + s : 6 + f * 4 + (s - 2);
 }
 
-template <typename T>
+template <typename T, int NEN>
 __global__ void __launch_bounds__(THREADS)
 tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
                        const T* __restrict__ U, const T* __restrict__ dN,
@@ -60,21 +75,30 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
                        const T* __restrict__ DF, const T* __restrict__ d2F,
                        const T* __restrict__ ref_a,
                        const T* __restrict__ ref_b,
-                       const T* __restrict__ ea, ShellConst<T> k, int ncp_y,
+                       const T* __restrict__ ea,
+                       const T* __restrict__ mask, ShellConst<T> k, int ncp_y,
                        int ncp_x, T* __restrict__ S,
                        const T* __restrict__ me, T* __restrict__ E) {
-  __shared__ T Ksh[MAXQ * NS * NS];
-  __shared__ T phi[MAXQ * 9 * 6];
-  __shared__ T ssh[MAXQ];
-  __shared__ T csh[27];
+  constexpr int NLOC = 3 * NEN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ksh = reinterpret_cast<T*>(smem_raw);     // [nq][NS][NS]
+  T* phi = Ksh + nq * NS * NS;                 // [nq][NEN][6]
+  T* ssh = phi + nq * NEN * 6;                 // [nq]
+  T* csh = ssh + nq;                           // [3][NEN]
+  T* msh = csh + NLOC;                         // [NEN]
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < 27; i += THREADS) csh[i] = U[conn[(size_t)e * 27 + i]];
-  for (int i = tid; i < nq * 54; i += THREADS) {
-    const int q = i / 54, a = (i / 6) % 9, s = i % 6;
+  for (int a = tid; a < NEN; a += THREADS)
+    msh[a] = mask == nullptr ? T(1) : mask[(size_t)e * NEN + a];
+  __syncthreads();
+  for (int i = tid; i < NLOC; i += THREADS)
+    csh[i] = U[conn[(size_t)e * NLOC + i]] * msh[i % NEN];
+  for (int i = tid; i < nq * NEN * 6; i += THREADS) {
+    const int q = i / (NEN * 6), a = (i / 6) % NEN, s = i % 6;
     const size_t pt = (size_t)e * nq + q;
-    phi[i] = s < 2 ? dN[pt * 18 + a * 2 + s] : d2N[pt * 36 + a * 4 + (s - 2)];
+    phi[i] = s < 2 ? dN[(pt * NEN + a) * 2 + s]
+                   : d2N[(pt * NEN + a) * 4 + (s - 2)];
   }
   for (int q = tid; q < nq; q += THREADS) ssh[q] = scale[(size_t)e * nq + q];
   __syncthreads();
@@ -84,7 +108,7 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
   for (int w = tid; w < nq * NPASS; w += THREADS) {
     const int q = w / NPASS, pass = w % NPASS;
     const size_t pt = (size_t)e * nq + q;
-    const T* ph = phi + q * 54;
+    const T* ph = phi + q * NEN * 6;
     T g[3][2], h[3][2][2];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -95,10 +119,10 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
         h[i][d][1] = T(0);
       }
 #pragma unroll
-    for (int a = 0; a < 9; ++a)
+    for (int a = 0; a < NEN; ++a)
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        const T c = csh[i * 9 + a];
+        const T c = csh[i * NEN + a];
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
           g[i][d] += ph[a * 6 + d] * c;
@@ -151,14 +175,14 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
   // 2-3. element matrix entries, folded into the stencil (or written out)
   const int ey = e / nel_x, ex = e % nel_x;
   const size_t plane = (size_t)ncp_y * ncp_x;
-  for (int idx = tid; idx < 27 * 27; idx += THREADS) {
-    const int row = idx / 27, col = idx % 27;
-    const int f = row / 9, a = row % 9, gf = col / 9, b = col % 9;
+  for (int idx = tid; idx < NLOC * NLOC; idx += THREADS) {
+    const int row = idx / NLOC, col = idx % NLOC;
+    const int f = row / NEN, a = row % NEN, gf = col / NEN, b = col % NEN;
     T acc = T(0);
     for (int q = 0; q < nq; ++q) {
       const T* Kq = Ksh + q * NS * NS;
-      const T* pa = phi + (q * 9 + a) * 6;
-      const T* pb = phi + (q * 9 + b) * 6;
+      const T* pa = phi + (q * NEN + a) * 6;
+      const T* pb = phi + (q * NEN + b) * 6;
       T sub = T(0);
 #pragma unroll
       for (int s = 0; s < 6; ++s) {
@@ -171,9 +195,10 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
       acc += ssh[q] * sub;
     }
     if (E != nullptr) {
+      acc = acc * msh[a] * msh[b];
       if (me != nullptr)
-        acc = acc * me[(size_t)e * 27 + row] * me[(size_t)e * 27 + col];
-      E[(size_t)e * 729 + idx] = acc;
+        acc = acc * me[(size_t)e * NLOC + row] * me[(size_t)e * NLOC + col];
+      E[(size_t)e * NLOC * NLOC + idx] = acc;
       continue;
     }
     const int ay = a / 3, ax = a % 3, by = b / 3, bx = b % 3;
@@ -182,6 +207,16 @@ tangent_stencil_kernel(int nel_x, int nq, const int* __restrict__ conn,
                      + (size_t)(ey + ay) * ncp_x + (ex + ax);
     atomicAdd(S + o, acc);
   }
+}
+
+// opt a kernel in to the dynamic shared memory it is launched with (the
+// attribute is set once per kernel and size, and only above the default)
+template <typename T, int NEN>
+cudaError_t elements_allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  return allow_smem(
+      reinterpret_cast<const void*>(tangent_stencil_kernel<T, NEN>), bytes,
+      &allowed);
 }
 
 template <typename T>
@@ -193,29 +228,42 @@ cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
                                    const double* c, int ncp_y, int ncp_x,
                                    T* S, cudaStream_t stream) {
   const int nel = nel_y * nel_x;
-  if (nq < 1 || nq > MAXQ) return cudaErrorInvalidValue;
+  if (nq < 1 || nq > MAXQ_STENCIL) return cudaErrorInvalidValue;
   if (nel == 0) return cudaSuccess;
   ShellConst<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3])};
-  tangent_stencil_kernel<T><<<nel, THREADS, 0, stream>>>(
-      nel_x, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, k,
-      ncp_y, ncp_x, S, nullptr, nullptr);
+  const size_t smem = tangent_smem<T>(nq, 9);
+  tangent_stencil_kernel<T, 9><<<nel, THREADS, smem, stream>>>(
+      nel_x, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, nullptr,
+      k, ncp_y, ncp_x, S, nullptr, nullptr);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t tangent_elements_launch(int nel, int nq, const int* conn,
-                                    const T* U, const T* dN, const T* d2N,
+cudaError_t tangent_elements_launch(int nel, int nq, int nen,
+                                    const int* conn, const T* U,
+                                    const T* dN, const T* d2N,
                                     const T* scale, const T* DF,
                                     const T* d2F, const T* ref_a,
                                     const T* ref_b, const T* ea,
-                                    const double* c, const T* me, T* E,
-                                    cudaStream_t stream) {
-  if (nq < 1 || nq > MAXQ) return cudaErrorInvalidValue;
+                                    const T* mask, const double* c,
+                                    const T* me, T* E, cudaStream_t stream) {
+  if (nq < 1 || nq > MAXQ || (nen != 9 && nen != 16))
+    return cudaErrorInvalidValue;
   if (nel == 0) return cudaSuccess;
   ShellConst<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3])};
-  tangent_stencil_kernel<T><<<nel, THREADS, 0, stream>>>(
-      1, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, k, 0, 0,
-      nullptr, me, E);
+  const size_t smem = tangent_smem<T>(nq, nen);
+  cudaError_t err;
+  if (nen == 9) {
+    if ((err = elements_allow_smem<T, 9>(smem)) != cudaSuccess) return err;
+    tangent_stencil_kernel<T, 9><<<nel, THREADS, smem, stream>>>(
+        1, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, mask, k,
+        0, 0, nullptr, me, E);
+  } else {
+    if ((err = elements_allow_smem<T, 16>(smem)) != cudaSuccess) return err;
+    tangent_stencil_kernel<T, 16><<<nel, THREADS, smem, stream>>>(
+        1, nq, conn, U, dN, d2N, scale, DF, d2F, ref_a, ref_b, ea, mask, k,
+        0, 0, nullptr, me, E);
+  }
   return cudaGetLastError();
 }
 
@@ -229,13 +277,14 @@ template cudaError_t tangent_stencil_launch<double>(
     const double*, const double*, const double*, int, int, double*,
     cudaStream_t);
 template cudaError_t tangent_elements_launch<float>(
-    int, int, const int*, const float*, const float*, const float*,
+    int, int, int, const int*, const float*, const float*, const float*,
     const float*, const float*, const float*, const float*, const float*,
-    const float*, const double*, const float*, float*, cudaStream_t);
-template cudaError_t tangent_elements_launch<double>(
-    int, int, const int*, const double*, const double*, const double*,
-    const double*, const double*, const double*, const double*,
-    const double*, const double*, const double*, const double*, double*,
+    const float*, const float*, const double*, const float*, float*,
     cudaStream_t);
+template cudaError_t tangent_elements_launch<double>(
+    int, int, int, const int*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*,
+    const double*, const double*, const double*, const double*,
+    const double*, double*, cudaStream_t);
 
 }  // namespace tigar

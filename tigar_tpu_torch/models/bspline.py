@@ -20,8 +20,9 @@ from ..ops.tabulation import tabulate_tensor_bspline
 
 class ScalarBasis:
     """Interface for scalar spline bases (reference: AbstractScalarBasis,
-    common.py:1673-1759).  The port implements TensorBSplineBasis; the
-    multipatch and T-spline bases of tigar_tpu are not ported yet."""
+    common.py:1673-1759).  Implemented by TensorBSplineBasis,
+    models.multipatch.MultiPatchBSplineBasis and
+    models.tsplines.TSplineBasis."""
 
     @property
     def ncp(self):

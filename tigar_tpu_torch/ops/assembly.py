@@ -471,31 +471,58 @@ def residual_vector_adjoint_ref(asm, adjoint_density, U):
                                                             U))
 
 
+# local functions a field the shell kernels take: the biquadratic B-spline
+# element and the bicubic Bezier extraction element (T-splines)
+SHELL_NENS = (9, 16)
+# quadrature points an element K2's element mode takes (dynamic shared
+# memory; the stencil fold takes at most 9)
+TANGENT_ELEMENTS_MAXQ = 16
+
+
+def shell_padding_mask(asm):
+    """The padding mask [nel, nen] the shell kernels take (the one shared by
+    all fields of a ragged basis), or None when no field is padded."""
+    m = asm.masks[0]
+    if any(x is not m for x in asm.masks):
+        raise ValueError("shell kernels need one padding mask shared by "
+                         "all fields")
+    if m is not None and tuple(m.shape) != (asm.nel, asm.nens[0]):
+        raise ValueError(f"padding mask shape {tuple(m.shape)} != "
+                         f"({asm.nel}, {asm.nens[0]})")
+    return m
+
+
 def shell_kernel_args(asm, density, U):
     """Check what K1/K2 take -- the SVK shell density on an equal-order
-    3-field biquadratic surface assembler, CUDA tensors of one dtype --
-    and return their shared tensor arguments, contiguous."""
+    3-field surface assembler with 9 (biquadratic) or 16 (bicubic
+    extraction element) local functions a field, one shared tabulation and
+    at most one shared padding mask, CUDA tensors of one dtype -- and
+    return their shared tensor arguments, contiguous (the padding mask is
+    ``shell_padding_mask(asm)``).  A shape the kernels do not take raises
+    ValueError naming it."""
     from ..models.shell import SVKShellAdjoint
     if not isinstance(density, SVKShellAdjoint):
         raise TypeError("the CUDA shell kernels evaluate the SVK shell "
                         "density only (models.shell.SVKShellAdjoint); got "
                         f"{type(density).__name__}")
+    if asm.nfields != 3 or len(set(asm.nens)) != 1 or \
+            asm.nens[0] not in SHELL_NENS:
+        raise ValueError("shell kernels need 3 fields of 9 (biquadratic) or "
+                         f"16 (bicubic) local functions; got {asm.nfields} "
+                         f"fields of {asm.nens}")
+    if any(x is not asm.Ns[0] for x in asm.Ns):
+        raise ValueError("shell kernels need one shared tabulation for all "
+                         "fields")
+    shell_padding_mask(asm)
+    if asm.d2Ns[0] is None or tuple(asm.ctx.DF.shape[-2:]) != (3, 2):
+        raise ValueError("shell kernels need nders=2 on a 2D surface in 3D")
+    if U.shape != (asm.ndof,):
+        raise ValueError(f"U shape {tuple(U.shape)} != ({asm.ndof},)")
     if not (U.is_cuda and asm.scale.is_cuda):
         raise ValueError("U and the assembler must be CUDA tensors")
     if U.dtype != asm.dtype or U.dtype not in (torch.float32,
                                                torch.float64):
         raise TypeError(f"U dtype {U.dtype} vs assembler {asm.dtype}")
-    if asm.nfields != 3 or any(n != 9 for n in asm.nens):
-        raise ValueError("shell kernels need 3 fields of 9 local "
-                         "functions (biquadratic)")
-    if any(x is not asm.Ns[0] for x in asm.Ns) or \
-            any(m is not None for m in asm.masks):
-        raise ValueError("shell kernels need one shared, unmasked "
-                         "tabulation for all fields")
-    if asm.d2Ns[0] is None or tuple(asm.ctx.DF.shape[-2:]) != (3, 2):
-        raise ValueError("shell kernels need nders=2 on a 2D surface in 3D")
-    if U.shape != (asm.ndof,):
-        raise ValueError(f"U shape {tuple(U.shape)} != ({asm.ndof},)")
     if "shell_ref" not in (asm.ctx.aux or {}):
         raise ValueError("precompute_shell_reference has not run on this "
                          "assembler")
@@ -505,12 +532,18 @@ def shell_kernel_args(asm, density, U):
         asm.ctx.DF, asm.ctx.d2F, sref.a, sref.b, sref.ea)]
 
 
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
 def shell_residual_cuda(asm, density, U):
     """Kernel K1: fused gather -> jets -> SVK adjoint (+ load) ->
-    contraction -> atomic scatter-add, one thread per quadrature point."""
+    contraction -> atomic scatter-add, one thread per quadrature point;
+    padded slots of ragged elements add nothing."""
     args = shell_kernel_args(asm, density, U)
     ext = cuda_ext.load()
     r = ext.shell_residual(U.contiguous(), *args,
+                           _contiguous(shell_padding_mask(asm)),
                            list(density.kernel_constants()), asm.ndof)
     cuda_ext.count("shell_residual")
     return r
@@ -518,20 +551,25 @@ def shell_residual_cuda(asm, density, U):
 
 def element_matrices_cuda(asm, density, U, me=None):
     """Kernel K2's element mode: K2's jet-Jacobians and element matrices
-    (steps 1-2), each entry masked by me[a] me[b] when ``me`` is given and
-    written to E [nel, 27, 27] instead of folded into a stencil."""
-    args = shell_kernel_args(asm, density, U)
-    if asm.nq > 9:
-        raise ValueError("the tangent kernel takes at most 9 quadrature "
-                         f"points, got {asm.nq}")
-    if me is not None and (tuple(me.shape) != (asm.nel, 27) or
+    (steps 1-2) for 9 or 16 local functions a field and at most 16
+    quadrature points, each entry masked by the padding mask on both sides
+    and by me[a] me[b] when ``me`` is given, written to E [nel, nloc,
+    nloc] instead of folded into a stencil."""
+    if asm.nq > TANGENT_ELEMENTS_MAXQ:
+        raise ValueError("the tangent kernel takes at most "
+                         f"{TANGENT_ELEMENTS_MAXQ} quadrature points, got "
+                         f"{asm.nq}")
+    if me is not None and (tuple(me.shape) != (asm.nel, asm.nloc) or
                            me.dtype != U.dtype or not me.is_cuda):
-        raise ValueError(f"me must be [{asm.nel}, 27] of U's type on the "
-                         "card")
+        raise ValueError(f"me must be [{asm.nel}, {asm.nloc}] of U's type "
+                         f"on the card; got shape {tuple(me.shape)}, "
+                         f"{me.dtype}")
+    args = shell_kernel_args(asm, density, U)
     ext = cuda_ext.load()
     E = ext.tangent_elements(U.contiguous(), *args,
+                             _contiguous(shell_padding_mask(asm)),
                              list(density.kernel_constants()[:4]),
-                             None if me is None else me.contiguous())
+                             _contiguous(me))
     cuda_ext.count("tangent_elements")
     return E
 

@@ -110,3 +110,20 @@ def eval_basis(kv, u, nders=0):
     nodes = span[:, None] - kv.p + np.arange(kv.p + 1)[None, :]
     nodes = np.mod(nodes, kv.ncp)
     return nodes.astype(np.int64), ders
+
+
+def bernstein_basis_ders(p, u, nders, interval=(-1.0, 1.0)):
+    """Bernstein polynomials of degree ``p`` on ``interval`` with their
+    first ``nders`` derivatives (the bi-cubic Bezier basis of the Rhino
+    T-spline extraction format): the open B-spline basis of the knot
+    vector with two distinct values, each of multiplicity p+1.
+
+    Returns [n, nders+1, p+1].
+    """
+    from .knots import KnotVector
+    u = np.atleast_1d(np.asarray(u, dtype=np.float64))
+    a, b = interval
+    knots = np.concatenate([np.full(p + 1, float(a)),
+                            np.full(p + 1, float(b))])
+    _, ders = eval_basis(KnotVector(p, knots), u, nders)
+    return ders

@@ -42,6 +42,12 @@ def _calls():
     bad = i32(1)                        # an int tensor where floats go
     shell = [bad] * 11                  # K1/K2: check_float(U) refuses
 
+    def shellv(nen=9, nq=4, nel=2):     # K1/K2: every shape valid
+        return [z(16), i32(nel, 3 * nen), z(nel, nq, nen),
+                z(nel, nq, nen, 2), z(nel, nq, nen, 2, 2), z(nel, nq),
+                z(nel, nq, 3, 2), z(nel, nq, 3, 2, 2), z(nel, nq, 2, 2),
+                z(nel, nq, 2, 2), z(nel, nq, 2, 2)]
+
     nq, m, ndof = 4, 8, 16
     pos = i32(nq, 3, 9)
 
@@ -62,11 +68,23 @@ def _calls():
 
     return {
         "shell_residual": lambda e: e.shell_residual(
-            *shell, [0.0] * 7, 1),
+            *shell, None, [0.0] * 7, 1),
+        "shell_residual/nen": lambda e: e.shell_residual(
+            *shellv(nen=4), None, [0.0] * 7, 16),
+        "shell_residual/mask": lambda e: e.shell_residual(
+            *shellv(nen=16), z(2, 9), [0.0] * 7, 16),
         "tangent_stencil": lambda e: e.tangent_stencil(
             *shell, [0.0] * 4, [1, 1], [3, 3]),
+        "tangent_stencil/nen": lambda e: e.tangent_stencil(
+            *shellv(nen=16), [0.0] * 4, [1, 2], [3, 4]),
         "tangent_elements": lambda e: e.tangent_elements(
-            *shell, [0.0] * 4, None),
+            *shell, None, [0.0] * 4, None),
+        "tangent_elements/nq": lambda e: e.tangent_elements(
+            *shellv(nen=16, nq=17), None, [0.0] * 4, None),
+        "tangent_elements/mask": lambda e: e.tangent_elements(
+            *shellv(nen=16), z(2, 16, 1), [0.0] * 4, None),
+        "tangent_elements/me": lambda e: e.tangent_elements(
+            *shellv(nen=16), z(2, 16), [0.0] * 4, z(2, 27)),
         "elem_tangent_apply": lambda e: e.elem_tangent_apply(
             i32(1, 1), bad, bad, None),
         "elem_tangent_diagonal": lambda e: e.elem_tangent_diagonal(

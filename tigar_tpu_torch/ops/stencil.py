@@ -290,7 +290,11 @@ def build_stencil_cuda(asm, adjoint_density, U, basis, nf):
     adjoint at each quadrature point by forward-mode dual numbers, the
     27x27 element matrix E = sum_q w_q B^T K B in shared memory, and an
     atomic fold of each entry into S at offset (b - a) + p."""
-    from .assembly import shell_kernel_args
+    from .assembly import shell_kernel_args, shell_padding_mask
+    if asm.nens[0] != 9 or shell_padding_mask(asm) is not None:
+        raise ValueError("the stencil fold takes unpadded biquadratic "
+                         "elements (9 local functions a field); got "
+                         f"{asm.nens[0]}")
     args = shell_kernel_args(asm, adjoint_density, U)
     _check_uniform_support(basis)
     degrees, grid_shape, nel_shape = _layout(basis)

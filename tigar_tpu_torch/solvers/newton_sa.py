@@ -24,6 +24,8 @@ dtype-dispatched einsum (K10 is one kernel per type).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -163,8 +165,7 @@ class SANewton(StencilNewton):
         self._polish_cg_iters = int(polish_cg_iters)
         self.polish_tangent = str(polish_tangent)
         self.rebuild_rel = float(rebuild_rel)
-        self._st64 = None
-        self._sa = None
+        self.reset()
         self._sa_kwargs = dict(sa_kwargs or {})
         self.krylov = krylov
 
@@ -177,8 +178,15 @@ class SANewton(StencilNewton):
         self._cols_h = np.broadcast_to(conn_h[:, None, :],
                                        (nel, nloc, nloc)).reshape(-1)
         self._conn = conn.contiguous()
-        # element-level BC mask: the mask gathered at the connectivity
-        self._me64 = spline.mask[conn].contiguous()
+        # element-level BC mask: the mask gathered at the connectivity,
+        # times the padding mask of ragged bases, so that the padded rows
+        # and columns of E (connectivity 0) are zero whatever DoF 0's mask
+        # (equal order: every field shares the scalar basis's mask)
+        me = spline.mask[conn]
+        pad = self.asm64.masks[0]
+        if pad is not None:
+            me = me * pad.to(me.dtype).repeat(1, self.nf)
+        self._me64 = me.contiguous()
 
         # DoF geometry for the aggregation, replicated per field: the
         # dehomogenized control net, or the Greville abscissae of the
@@ -193,6 +201,16 @@ class SANewton(StencilNewton):
         self._pts_dof = np.tile(pts, (self.nf, 1))
         self._field_of = np.repeat(np.arange(self.nf), ncp)
         self._mask_h = spline.mask.cpu().numpy().astype(np.float64)
+
+    def reset(self):
+        """Drops the cached tangents and preconditioner, so that the next
+        step or solve starts from the solver's initial state, and empties
+        ``sa_setup_s``, the host seconds of each preconditioner setup since
+        (tangent values to the host, the aggregation hierarchy and its
+        upload)."""
+        self._st64 = None
+        self._sa = None
+        self.sa_setup_s = []
 
     # -- tangents -------------------------------------------------------------
 
@@ -211,6 +229,7 @@ class SANewton(StencilNewton):
         plus a unit diagonal on constrained DoFs), or a dense f32 inverse
         when the problem is at or below the SA coarse size."""
         if self._sa is None:
+            t0 = time.perf_counter()
             ndof = self.spline.ndof
             vals_h = st32.vals.cpu().numpy().astype(np.float64)
             rows = np.concatenate([self._rows_h, np.arange(ndof)])
@@ -228,6 +247,9 @@ class SANewton(StencilNewton):
                     rows, cols, vals, ndof, self._pts_dof, self._mask_h,
                     field_of=self._field_of, fine_op=st32,
                     fine_mask=self.mask32, device=dev, **self._sa_kwargs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.sa_setup_s.append(time.perf_counter() - t0)
         return self._sa
 
     def polish_step(self, U, rebuild=False):
