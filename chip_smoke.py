@@ -31,15 +31,17 @@ Phases, each fatal on failure (nothing is caught):
      matrices and 1e-5 elsewhere), both times by CUDA events, the
      kernel's device time per launch by the profiler (taken after phase
      5), and its bound (bytes over 3.35 TB/s or operations over the peak
-     rate of the type, the larger); K4 also at a small periodic 3D and a
-     small 2D p=3 case; the library yardsticks of K3's apply mode (f32,
-     130^2) and K4 (f32, 96^3): the same BC'd operator as one f32
+     rate of the type, the larger); K3 on every grid the V-cycle smooths
+     (130^2, 66^2, 34^2, 18^2), every mode, f32 and f64, timed in f32
+     and in the f64 fine apply; K4 also at a small periodic 3D and a
+     small 2D p=3 case; the library yardsticks of K3's f32 apply (every
+     level) and K4 (f32 and f64, 96^3): the same BC'd operator as one
      torch.sparse CSR matrix, CUDA events of the call alone and, later,
      its profiler device time (recorded only where sessions of 10 and of
      all the timed calls record the same whole number of events a call);
   3. the shell main path: one production step after a warm-up (best of
      3), then the full solve to rtol=1e-10 with every launch count reset
-     just before it and read just after;
+     just before it and read just after (K3's also by grid);
   4. the floor certificate: the final f64 residual against the CPU twin of
      the residual kernel on the same state (rel64 <= 3 cpu_rel,
      rel64 <= 1e-8, |dU|/|U| <= 1e-10; or rel64 <= 1e-10);
@@ -61,7 +63,8 @@ Phases, each fatal on failure (nothing is caught):
      (16,32,33) with cg_iters=15, polish_cg_iters=40, polish_tangent="f64",
      build_quad_degree=2, rebuild_rel=0.1.  K1 over the concatenated
      patches, K2 on each patch's element range (f32 and f64), K3's patch
-     mode (every mode, f32 and f64), K5-K7 against their plain versions at
+     mode (every mode, f32 and f64; f32 also on the smoothed coarse
+     level), K5-K7 against their plain versions at
      these shapes (K5 timed as the call alone, accumulating into one
      buffer; torch.mv on the pre-gathered vector its yardstick, CUDA
      events and profiler device time); the best of 3 warm f32 steps; the
@@ -96,8 +99,10 @@ Phases, each fatal on failure (nothing is caught):
      coarse_size 800) and two changes: build_quad_degree=2, as the
      headline shell uses, and f64 residuals on the card (the bench routes
      the polish residual to the host CPU, a TPU workaround).  K2's element
-     mode (f32 and f64), K10 (apply, BC'd apply, diagonal; f32 and f64)
-     and K11 (A, P and P^T of every SA level; f32) against their plain
+     mode (f32 and f64) with the asymmetry max |E - E^T| / max |E| of
+     its matrices (K10 reads their upper triangles), K10 (apply, BC'd
+     apply, diagonal; f32 and f64) and K11 (A, P and P^T of every SA
+     level; f32) against their plain
      versions, K10/K11 also against torch.sparse CSR products; the SA
      level sizes and the host setup seconds; the best of 3 warm f32
      steps; the full solve with every launch count reset just before it
@@ -143,8 +148,8 @@ Phases, each fatal on failure (nothing is caught):
      the demo's own contact at the state after the step (no profiler);
      the card against the CPU plain versions at NEL=6 (MG=0) and NEL=12
      (MG=1, the form-based V-cycle), f64 CG of 10 iterations (the same
-     Newton count, U within 1e-10); the profile of one Newton
-     correction's CG.
+     Newton count, U within 1e-10); the profile of 5 iterations of a
+     Newton correction's CG.
  13. sum-factorized forms (make_sumfac_assembler -> residual_vector /
      tangent_action): with phase 2, K15 (jets) and K16 (their transpose)
      against their plain versions, f64 1e-12 and f32 1e-5 of the largest
@@ -431,15 +436,16 @@ def compare(name, kernel, twin, tol, reps, twin_reps, record, match=None,
     record.append(entry)
 
 
-def csr_f32(keep, vals, cols):
-    """One f32 torch.sparse CSR matrix from row-major candidates: ``keep``,
-    ``vals`` and ``cols`` [n, k], each row's columns ascending."""
+def csr_rows(keep, vals, cols, dtype=torch.float32):
+    """One torch.sparse CSR matrix of ``dtype`` from row-major candidates:
+    ``keep``, ``vals`` and ``cols`` [n, k], each row's columns
+    ascending."""
     n = keep.shape[0]
     crow = torch.zeros(n + 1, dtype=torch.int64, device=keep.device)
     crow[1:] = torch.cumsum(keep.sum(1), 0)
     return torch.sparse_csr_tensor(
         crow.to(torch.int32), cols[keep].to(torch.int32),
-        vals[keep].to(torch.float32), (n, n), check_invariants=True)
+        vals[keep].to(dtype), (n, n), check_invariants=True)
 
 
 def stencil_csr(st, mask):
@@ -467,7 +473,7 @@ def stencil_csr(st, mask):
     vals = vals + diag * (1.0 - m).view(nf, ny, nx, 1, 1, 1)
     keep = ok[None, :, :, None] & ((vals != 0) | diag)
     k = nf * (2 * py + 1) * (2 * px + 1)
-    return csr_f32(keep.reshape(nf * n, k), vals.reshape(nf * n, k),
+    return csr_rows(keep.reshape(nf * n, k), vals.reshape(nf * n, k),
                    cols[None].expand(nf, -1, -1, -1, -1, -1)
                    .reshape(nf * n, k))
 
@@ -530,9 +536,15 @@ def kernel_phases(ns):
                 TOL["f32_stencil"], 5, 1, rec["tangent_stencil"],
                 match="tangent_stencil_kernel", work=work)
 
+    # K3 on every smoothed level of the V-cycle (the fine grid and the
+    # coarse grids but the last, whose dense inverse is the coarse solve),
+    # every mode, f32 as the V-cycle runs it and f64 as the polish's fine
+    # apply; times of the f32 rows and the f64 fine apply, the library
+    # yardstick of each f32 apply
     st_fine = build_stencil(ns.asm_b32, dens, U32, basis, 3)
-    levels = [("fine", st_fine, ns.mask32),
-              ("coarse", ns._coarse_sts[1], ns._coarse_masks[1])]
+    levels = [("fine", st_fine, ns.mask32)] + [
+        (f"level {l}", st, m) for l, (st, m) in enumerate(
+            zip(ns._coarse_sts[:-1], ns._coarse_masks[:-1]), 1)]
     g = torch.Generator().manual_seed(1)
     for lname, st32, m32 in levels:
         n = st32.ndof
@@ -545,13 +557,7 @@ def kernel_phases(ns):
             dinv = 1.0 / (m * st.diagonal() + (1.0 - m))
             for mode in ("apply", "residual", "jacobi"):
                 kw = dict(mask=m, b=b, dinv=dinv, omega=0.7, mode=mode)
-                timed = (tag, lname) == ("f32", "fine") and mode != \
-                    "residual"
-                # the Jacobi sweep reads S, x, mask, b, dinv and writes y,
-                # the apply S, x, mask; 225 multiply-adds per grid point
-                vecs = (x, m, b, dinv, x) if mode == "jacobi" else (x, m, x)
-                work = (nbytes(st.S, *vecs), 450.0 * n / 3, dt) \
-                    if timed else None
+                timed = tag == "f32" or (lname, mode) == ("fine", "apply")
                 compare(f"K3 stencil_apply {mode} {tag} {lname} "
                         f"grid={st.grid_shape}",
                         lambda s=st, kw=kw, x=x: stencil_apply(s, x, **kw),
@@ -559,10 +565,20 @@ def kernel_phases(ns):
                                                                    **kw),
                         tol, 50, 10, rec["stencil_apply"],
                         match="stencil_apply_kernel" if timed else None,
-                        work=work)
-                if timed and mode == "apply":
+                        work=stencil_work(st, mode))
+                if tag == "f32" and mode == "apply":
                     stencil_library(st, m, x, rec["stencil_apply"][-1])
     return rec
+
+
+def stencil_work(st, mode):
+    """K3's work for ``bound`` on the grid of ``st`` (alone or as a patch):
+    it reads S once and the grid's 3 fields of x, the mask (and b, and
+    dinv, by mode), and writes y there; 225 multiply-adds a grid point."""
+    n = int(np.prod(st.grid_shape))
+    nvec = {"apply": 3, "residual": 4, "jacobi": 5}[mode]
+    return (nbytes(st.S) + nvec * 3 * n * st.S.element_size(), 450.0 * n,
+            st.S.dtype)
 
 
 def stencil_library(st, m, x, entry):
@@ -661,9 +677,9 @@ def sumfac_flops(data):
     return float(nel * (2 * 2 * ma + (dim + 1) * Q ** dim))
 
 
-def sumfac_csr(data, mask):
+def sumfac_csr(data, mask, dtype=torch.float32):
     """K4's identity-geometry stiffness apply (ck = 1, cm = 0) with a mask
-    as one f32 CSR matrix: A = sum_c kron_d T_d^(c), T_d^(c) the 1D
+    as one CSR matrix of ``dtype``: A = sum_c kron_d T_d^(c), T_d^(c) the 1D
     stiffness matrix of direction d when d = c, else its mass matrix;
     mask A mask + diag(1 - mask), masked-out entries dropped.  Rows in
     K4's order (direction 0 fastest); open knot vectors."""
@@ -718,7 +734,7 @@ def sumfac_csr(data, mask):
     vals[:, k // 2] += 1.0 - m
     keep = ok & (vals != 0)
     keep[:, k // 2] = True
-    return csr_f32(keep, vals, cols)
+    return csr_rows(keep, vals, cols, dtype)
 
 
 def sumfac_phases(device):
@@ -743,18 +759,15 @@ def sumfac_phases(device):
                 lambda d=data, w=W, m=m: sumfac_apply_ref(d, w, 1.0, 0.0, m),
                 TOL[tag], 50, 3, rec, match="sumfac", work=work,
                 per_call=2)
-        if dt == torch.float32:
-            # the library yardstick: the same BC'd operator as one f32
-            # torch.sparse CSR matrix applied with ``@``
-            A = sumfac_csr(data, m)
-            err = rel_diff(torch.mv(A, W), sumfac_apply(data, W, 1.0, 0.0,
-                                                        m))
-            rec[-1]["library_ms"] = cuda_ms(lambda A=A, x=W: torch.mv(A, x),
-                                            50)
-            rec[-1]["library_probe"] = (lambda A=A, x=W: torch.mv(A, x), 50)
-            say(f"    library yardstick torch.sparse CSR f32 @ W "
-                f"({A._nnz()} entries): {rec[-1]['library_ms']:.4f} ms, "
-                f"rel diff {err:.1e}")
+        # the library yardstick: the same BC'd operator as one
+        # torch.sparse CSR matrix of the same type applied with ``@``
+        A = sumfac_csr(data, m, dt)
+        err = rel_diff(torch.mv(A, W), sumfac_apply(data, W, 1.0, 0.0, m))
+        rec[-1]["library_ms"] = cuda_ms(lambda A=A, x=W: torch.mv(A, x), 50)
+        rec[-1]["library_probe"] = (lambda A=A, x=W: torch.mv(A, x), 50)
+        say(f"    library yardstick torch.sparse CSR {tag} @ W "
+            f"({A._nnz()} entries): {rec[-1]['library_ms']:.4f} ms, "
+            f"rel diff {err:.1e}")
 
     small = (("periodic 3D nel=8 p=2", 3, 2, 8, True),
              ("2D nel=64 p=3", 2, 3, 64, False))
@@ -772,6 +785,19 @@ def sumfac_phases(device):
     return rec
 
 
+def k3_levels(label):
+    """K3's launches by grid since the last count reset, printed (None
+    from a tree whose wrapper keeps no tally by grid)."""
+    from tigar_tpu_torch.ops import cuda_ext
+    by = getattr(cuda_ext, "counts_by", None)
+    if by is None:
+        return None
+    lv = {f"{g[0]}x{g[1]}": c
+          for g, c in sorted(by("stencil_apply").items(), reverse=True)}
+    say(f"{label} K3 launches by grid: {lv}")
+    return lv
+
+
 def best_of_3(fn):
     best = np.inf
     for _ in range(3):
@@ -786,7 +812,8 @@ def best_of_3(fn):
 def profile_steps(ns, U, step_s):
     """torch.profiler trace of the steps named in ``step_s`` (a production
     step, a polish step) at state U; prints device time by kernel and the
-    device's busy share of the un-profiled step wall time ``step_s``.
+    device's busy share of the un-profiled step wall time ``step_s``, and
+    returns the busy shares by label.
     Only device-side events
     (kernels, copies, memsets) are summed: the CPU op rows of key_averages
     carry the device time of the kernels they launch, which appear as rows
@@ -795,6 +822,7 @@ def profile_steps(ns, U, step_s):
     from torch.profiler import profile, ProfilerActivity
     runs = {"production step": lambda: ns.step(U),
             "polish step": lambda: ns.polish_step(U)}
+    busy = {}
     for label in step_s:
         fn = runs[label]
         fn()
@@ -815,6 +843,7 @@ def profile_steps(ns, U, step_s):
             say(f"profile {label}: no device time recorded (not measured)")
             continue
         ref = step_s[label] * 1e3
+        busy[label] = dev_ms / ref
         say(f"profile {label}: device busy {dev_ms:.3f} ms of {ref:.3f} ms "
             f"un-profiled wall (busy share {dev_ms / ref:.3f}); "
             f"profiled wall {wall * 1e3:.3f} ms; {sum(r[1] for r in rows)} "
@@ -822,6 +851,7 @@ def profile_steps(ns, U, step_s):
         for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
             say(f"    {us / 1e3:9.3f} ms  {us / 1e3 / dev_ms:6.3f} of busy  "
                 f"{count:6d} x  {key[:90]}")
+    return busy
 
 
 def poisson_main_path(device):
@@ -1206,9 +1236,14 @@ def iface_kernel_phases(ns, cpl, rec):
 
     # K3 reading and writing each patch in place, every mode, f32 (the
     # V-cycle) and f64 (the polish operator), at the operators' own
-    # diagonals
-    for tag, op, mk, tol in (("f32", op32, ns.mask32, TOL["f32"]),
-                             ("f64", op64, ns.mask64, TOL["f64"])):
+    # diagonals, on the fine level and (f32) on the coarse level the
+    # V-cycle smooths (the last is its dense coarse solve)
+    ops = [("", op32, ns.mask32, TOL["f32"]),
+           ("", op64, ns.mask64, TOL["f64"])] + [
+        (f" level {l}", op, mk, TOL["f32"]) for l, (op, mk) in enumerate(
+            zip(ns._coarse_sts[:-1], ns._coarse_masks[:-1]), 1)]
+    for lname, op, mk, tol in ops:
+        tag = "f64" if mk.dtype == torch.float64 else "f32"
         x, b = (torch.randn(op.ndof, generator=g, dtype=torch.float64)
                 .to(mk.device, mk.dtype) for _ in range(2))
         dinv = 1.0 / (mk * op.diagonal() + (1.0 - mk))
@@ -1217,13 +1252,14 @@ def iface_kernel_phases(ns, cpl, rec):
                 kw = dict(mask=mk, b=b, dinv=dinv, omega=0.7, mode=mode,
                           base=op.doffsets[p], fstride=op.doffsets[-1])
                 oa, ob = torch.zeros_like(x), torch.zeros_like(x)
-                compare(f"K3 stencil_apply {mode} {tag} patch {'AB'[p]} "
-                        f"grid={st.grid_shape}",
+                compare(f"K3 stencil_apply {mode} {tag}{lname} patch "
+                        f"{'AB'[p]} grid={st.grid_shape}",
                         lambda s=st, kw=kw, o=oa, x=x: stencil_apply(
                             s, x, out=o, **kw),
                         lambda s=st, kw=kw, o=ob, x=x: stencil_apply_ref(
                             s, x, out=o, **kw),
-                        tol, 10, 3, rec["stencil_apply"])
+                        tol, 10, 3, rec["stencil_apply"],
+                        work=stencil_work(st, mode))
 
 
 def two_patch_main_path(ns, cpl, sizes, setup_s):
@@ -1256,6 +1292,7 @@ def two_patch_main_path(ns, cpl, sizes, setup_s):
         f"{peak_gb:.3f} GiB (setup {setup_s:.2f} s, ndof={ndof}, levels "
         f"{sizes})")
     say(f"two-patch main-path kernel launches: {launches}")
+    levels = k3_levels("two-patch main path")
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("two-patch solution is not finite or has the wrong "
                          "shape")
@@ -1264,7 +1301,8 @@ def two_patch_main_path(ns, cpl, sizes, setup_s):
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise SystemExit(f"two-patch main path never launched {missing}")
-    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps)
+    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps,
+                 k3_by_grid=levels)
     return Usol, rel64, dU_rel, launches, times
 
 
@@ -1430,6 +1468,7 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
         f"{sizes}, beta_d={cpl.params['beta_d']:g}, "
         f"beta_r={cpl.params['beta_r']:g})")
     say(f"two-patch Nitsche main-path kernel launches: {launches}")
+    levels = k3_levels("two-patch Nitsche main path")
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("two-patch Nitsche solution is not finite or has "
                          "the wrong shape")
@@ -1439,7 +1478,8 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
     if missing:
         raise SystemExit(f"two-patch Nitsche main path never launched "
                          f"{missing}")
-    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps)
+    times = dict(step_ms=best * 1e3, solve_s=t_solve, steps=nsteps,
+                 k3_by_grid=levels)
     return Usol, rel64, dU_rel, launches, times
 
 
@@ -1465,6 +1505,33 @@ def csr_of(rows, cols, vals, shape):
     A = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
                                 vals, shape).coalesce()
     return A.to_sparse_csr()
+
+
+def elem_csr(st, m):
+    """K10's BC'd operator, the masked element matrices of the ElemTangent
+    ``st`` plus the unit diagonal at the constrained DoFs (mask ``m``), as
+    one torch.sparse CSR matrix: K10's library yardstick."""
+    n = m.numel()
+    nloc = st.conn.shape[1]
+    ar = torch.arange(n, device=m.device, dtype=torch.int32)
+    rows = torch.cat([st.conn[:, :, None].expand(-1, -1, nloc).reshape(-1),
+                      ar])
+    cols = torch.cat([st.conn[:, None, :].expand(-1, nloc, -1).reshape(-1),
+                      ar])
+    return csr_of(rows, cols, torch.cat([st.E.reshape(-1), 1.0 - m]),
+                  (n, n))
+
+
+def elem_work(st, masked=True):
+    """K10's work for ``bound``: it reads E's upper triangle (E is
+    symmetric), conn, x (and the mask) and writes y; 2 nloc^2 operations
+    an element."""
+    nel, nloc = st.conn.shape
+    es = st.E.element_size()
+    n = st.ndof
+    return (nel * nloc * (nloc + 1) // 2 * es + nbytes(st.conn)
+            + (3 if masked else 2) * n * es, 2.0 * nel * nloc * nloc,
+            st.E.dtype)
 
 
 SA_KEYS = ("tangent_elements", "elem_tangent_apply", "ell_spmv")
@@ -1551,6 +1618,10 @@ def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
                 f"kernel {float((kern() - E64).abs().max()) / scale:.3e}, "
                 f"plain {float((plain() - E64).abs().max()) / scale:.3e}")
         sts[tag] = ns._build(asm, U)
+        # K10 reads E's upper triangle: how far from symmetric E is
+        E = sts[tag].E
+        asym = float((E - E.transpose(1, 2)).abs().max() / E.abs().max())
+        say(f"    E {tag}{label}: max |E - E^T| / max |E| {asym:.3e}")
 
     n = ns.spline.ndof
     g = torch.Generator().manual_seed(11)
@@ -1577,25 +1648,14 @@ def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
                     st.conn, st.E, x, mk))
                 plain = (lambda st=st, x=x, mk=mk:
                          sparse.elem_tangent_apply_ref(st.conn, st.E, x, mk))
-                # reads E, conn, x (and the mask), writes y
-                work = (nbytes(st.E, st.conn, x, x)
-                        + (n * es if mk is not None else 0),
-                        2.0 * nel * nloc * nloc, dt)
+                work = elem_work(st, mk is not None)
             compare(f"K10 elem_tangent {what} {tag} nel={nel} nloc={nloc}"
                     f"{label}", kern, plain, TOL[tag], 50, 5, rec[k_et],
                     match="elem_", work=work,
                     per_call=1 if what == "diagonal" else 2)
             done(k_et)
             if what == "masked":
-                # the BC'd operator: masked E plus the unit diagonal at
-                # the constrained DoFs
-                ar = torch.arange(n, device=x.device, dtype=torch.int32)
-                rows = torch.cat([st.conn[:, :, None].expand(-1, -1, nloc)
-                                  .reshape(-1), ar])
-                cols = torch.cat([st.conn[:, None, :].expand(-1, nloc, -1)
-                                  .reshape(-1), ar])
-                A = csr_of(rows, cols, torch.cat([st.E.reshape(-1), 1.0 - m]),
-                           (n, n))
+                A = elem_csr(st, m)
                 yk = kern()
                 lib_err = float((A @ x - yk).abs().max() / yk.abs().max())
                 rec[k_et][-1]["library_ms"] = cuda_ms(
@@ -1651,7 +1711,8 @@ def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
 def sa_main_path(ns, U_stencil, setup_s):
     """The best of 3 warm f32 SANewton steps, then the full solve with
     every launch count reset just before it and read just after; its U
-    against the StencilNewton solution of the same problem."""
+    against the StencilNewton solution of the same problem.  Returns U,
+    the launch counts and the times."""
     from tigar_tpu_torch.ops import cuda_ext
     ndof = ns.spline.ndof
     U0 = torch.zeros(ndof, dtype=torch.float64, device=ns.mask64.device)
@@ -1693,7 +1754,9 @@ def sa_main_path(ns, U_stencil, setup_s):
     if not err <= 1e-7:
         raise SystemExit("SANewton solution differs from StencilNewton's "
                          f"by {err:.3e} > 1e-7")
-    return Usol, launches
+    return Usol, launches, dict(step_ms=best * 1e3, solve_s=t_solve,
+                                steps=nsteps,
+                                sa_setup_s=sum(ns.sa_setup_s))
 
 
 def sa_reference(device):
@@ -1794,7 +1857,8 @@ def ts_main_path(ns, setup_sa_s):
     nel=48, every launch count reset just before the solve and read just
     after (inside ``run``); fails unless the solve launched K1, K2's
     element mode, K10 and K11, its solution is finite and the f64 floor is
-    certified as bench._solve_and_certify certifies it."""
+    certified as bench._solve_and_certify certifies it.  Returns the
+    run's record, the launch counts and the solution."""
     from tigar_tpu_torch.demos import star_tspline_shell as demo
     out = demo.run(TS_NEL, log=say, ns=ns)
     U, launches = out.pop("U"), out["launches"]
@@ -1820,7 +1884,7 @@ def ts_main_path(ns, setup_sa_s):
         raise SystemExit(f"star T-spline main path never launched {missing}")
     if not out["f64_accurate"]:
         raise SystemExit("star T-spline floor certificate FAILED")
-    return out, launches
+    return out, launches, U
 
 
 def ts_reference(device):
@@ -2184,12 +2248,13 @@ RK_ACTIVE = dict(k=1e4, r_max=0.3, r_self=0.05)   # tests/test_contact.py:29
 # MG=1 MIXED=1, run on a CPU (PERF.md section 6)
 RK_JAX_NEWTON = 7
 # CG iterations of the card-vs-CPU references (the CPU runs apply the AD
-# shell action eagerly, ~0.1 s a call)
+# shell action eagerly, ~0.1 s a call); at 5 the NEL=12 card and CPU
+# solutions drifted to 9.3e-10 of each other, over the 1e-10 bound
 RK_REF_CG = 10
-# CG iterations of the profiled correction: a quarter of the demo's 40, to
+# CG iterations of the profiled correction: an eighth of the demo's 40, to
 # keep the script inside its time limit (an iteration is tens of thousands
 # of device ops, each a profiler event to process)
-RK_PROF_CG = 10
+RK_PROF_CG = 5
 RK_TOL = {"f64": 1e-12, "f32": 1e-5, "ref": 1e-10}
 
 
@@ -2865,6 +2930,7 @@ def main():
         f"{rel64:.3e}, |dU|/|U| = {dU_rel:.3e}; peak device memory "
         f"{peak_gb:.3f} GiB")
     say(f"main-path kernel launches: {launches}")
+    k3_levels("shell main path")
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("solution is not finite or has the wrong shape")
     shell_kernels = ("shell_residual", "tangent_stencil", "stencil_apply")
@@ -2926,7 +2992,7 @@ def main():
     say(f"SANewton setup (spline shared with the shell path): "
         f"{time.time() - t0:.2f} s; options {SA_OPTS}")
     setup_sa = sa_kernel_phases(ns_sa, smooth_state(ns), rec)
-    Usa, l_sa = sa_main_path(ns_sa, Usol, setup_sa)
+    Usa, l_sa, _ = sa_main_path(ns_sa, Usol, setup_sa)
     sa_kernels = ("tangent_elements", "elem_tangent_apply", "ell_spmv")
     by_path["sa_newton"] = {k: l_sa[k]
                             for k in ("shell_residual",) + sa_kernels}
@@ -2953,7 +3019,7 @@ def main():
     # -- phase 14, step 2: the star-T-spline point (bench._tspline_point)
     # through the demo's entry point, counts reset around its solve -------
     t0 = time.time()
-    _, l_ts = ts_main_path(ns_ts, setup_ts)
+    _, l_ts, _ = ts_main_path(ns_ts, setup_ts)
     by_path["star_tspline"] = {
         k: l_ts[k] for k in ("shell_residual", "tangent_elements",
                              "elem_tangent_apply", "ell_spmv")}

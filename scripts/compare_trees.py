@@ -3,15 +3,17 @@
 tigar_tpu_torch on one CUDA card, so that two versions of the port can be
 timed in turns on one card:
 
-    python scripts/compare_trees.py --what k12_k5|shell --tree DIR \
-        --label NAME [--out FILE]
+    python scripts/compare_trees.py --what k12_k5|shell|k10_k3 \
+        --tree DIR --label NAME [--out FILE]
 
 imports ``tigar_tpu_torch`` from DIR (its kernels build into DIR/build)
 and the measuring code from this repository's ``chip_smoke.py``, and
 prints one JSON line, also appended to FILE.  Kernel ms: CUDA events over
 the calls, wrapper included; device ms: torch.profiler, every device
 event of the call, None unless sessions of 10 and of the timed calls
-record the same whole number a call.  Without a CUDA device it raises.
+record the same whole number a call (K10: its two kernels, from up to
+three sessions that record every launch).  Without a CUDA device it
+raises.
 
 ``--what k12_k5``: K12 (the f32 fast-path Laplace apply) through
 ``make_laplace_operator`` on the generic Poisson at 2D p=2 256^2, 2D p=3
@@ -30,6 +32,20 @@ and 10: K1 through ``residual_vector_adjoint`` (f32, f64; 9 points); K2
 through ``build_stencil`` (f32 at 4 and 9 points) and its element mode
 through ``element_matrices_adjoint`` with the BC mask at the connectivity
 (f32, f64; 4 points).
+
+``--what k10_k3``: K3 (the stencil apply) on every grid the shell's
+V-cycle smooths (130^2, 66^2, 34^2, 18^2; f32, every mode, and the f64
+fine apply) and on each patch of the two-patch shell's smoothed levels
+(in place, f32, every mode), each apply beside the same BC'd operator as
+one f32 torch.sparse CSR matrix; K10 (the element-batch tangent apply)
+on the BC'd f32 and f64 tangents of the 128^2 shell's SANewton path and
+of the star T-spline (nel 48), beside the same operator as one CSR
+matrix, with E's max |E - E^T| / max |E|; every kernel with its bound
+(chip_smoke.py's ``bound``).  Then each path through them: the shell
+(StencilNewton), the two-patch penalty and Nitsche shells, the 128^2
+shell through SANewton and the star: warm step times, the full solve and
+the device's busy share of a production and a polish step
+(chip_smoke.py's ``profile_steps``), and K3's launches by grid.
 """
 
 import argparse
@@ -114,7 +130,168 @@ def shell(cs, dev, timed):
     return out
 
 
-WHAT = {"k12_k5": k12_k5, "shell": shell}
+def k10_k3_kernels(cs, dev, timed):
+    """K3 at every grid the V-cycles smooth and K10 at both SANewton
+    paths, each beside its bound and its library yardstick."""
+    import numpy as np
+    import torch
+    from tigar_tpu_torch.demos import star_tspline_shell as star_demo
+    from tigar_tpu_torch.ops import sparse
+    from tigar_tpu_torch.ops.stencil import build_stencil, stencil_apply
+    out = {"k3": {}, "k10": {}}
+    g = torch.Generator().manual_seed(31)
+
+    def rnd(n, dt):
+        return torch.randn(n, generator=g, dtype=torch.float64).to(dev, dt)
+
+    def k3(key, st, m, modes, patch=None):
+        dt = st.S.dtype
+        n = m.numel()
+        x, b = rnd(n, dt), rnd(n, dt)
+        dinv = 1.0 / (m * rnd(n, dt).abs().add(1.0))
+        kw = {} if patch is None else dict(out=torch.empty_like(x),
+                                          base=patch[0], fstride=patch[1])
+        for mode in modes:
+            r = timed(lambda mode=mode: stencil_apply(
+                st, x, m, b, dinv, 0.7, mode, **kw), 200)
+            r["bound_ms"], r["bound_by"] = cs.bound(*cs.stencil_work(st,
+                                                                     mode))
+            if mode == "apply" and patch is None and dt == torch.float32:
+                A = cs.stencil_csr(st, m)
+                r["csr"] = timed(lambda: torch.mv(A, x), 200)
+            out["k3"][f"{key} {mode}"] = r
+
+    # the shell's smoothed V-cycle levels (f32) and its f64 fine apply
+    ns, _ = cs.build_solver(cs.NEL, dev)
+    U64 = cs.smooth_state(ns)
+    st = build_stencil(ns.asm_b32, ns.adjoint, U64.float(), ns.basis, 3)
+    levels = [(st, ns.mask32)] + list(zip(ns._coarse_sts[:-1],
+                                          ns._coarse_masks[:-1]))
+    for st, m in levels:
+        k3("shell {}x{} f32".format(*st.grid_shape), st, m,
+           ("apply", "residual", "jacobi"))
+    k3("shell {}x{} f64".format(*levels[0][0].grid_shape),
+       levels[0][0].astype(torch.float64), ns.mask64, ("apply",))
+
+    # the two-patch shell's smoothed levels, each patch in place (f32)
+    ns_tp, _, _ = cs.build_two_patch(dev)
+    op = ns_tp._build(ns_tp.asm_b32, cs.mp_smooth_state(ns_tp).float())
+    for op, m in [(op, ns_tp.mask32)] + list(zip(ns_tp._coarse_sts[:-1],
+                                                 ns_tp._coarse_masks[:-1])):
+        for p, st in enumerate(op.sts):
+            k3("two-patch {}x{} f32".format(*st.grid_shape), st, m,
+               ("apply", "residual", "jacobi"),
+               (op.doffsets[p], op.doffsets[-1]))
+
+    # K10's BC'd apply on the f32 and f64 tangents of both SANewton paths
+    ns_sa = cs.sa_solver(ns.spline, ns.adjoint)
+    ns_ts = star_demo.build(cs.TS_NEL, dev)
+    rng = np.random.default_rng(0)
+    U_star = ns_ts.mask64 * torch.as_tensor(
+        rng.normal(size=ns_ts.spline.ndof) * 1e-3, device=dev)
+    for label, s, U in (("128^2", ns_sa, U64), ("star", ns_ts, U_star)):
+        for dt in (torch.float32, torch.float64):
+            tag = "f32" if dt == torch.float32 else "f64"
+            st = s._build(s.asm_b32 if tag == "f32" else s.asm_b64,
+                          U.to(dt))
+            E = st.E
+            m = s.mask64.to(dt)
+            x = rnd(st.ndof, dt)
+            r = timed(lambda st=st, x=x, m=m: sparse.elem_tangent_apply(
+                st.conn, st.E, x, m), 200, "elem_", 2)
+            r["bound_ms"], r["bound_by"] = cs.bound(*cs.elem_work(st))
+            A = cs.elem_csr(st, m)
+            r["csr"] = timed(lambda A=A, x=x: A @ x, 200)
+            r["asym"] = float((E - E.transpose(1, 2)).abs().max()
+                              / E.abs().max())
+            r["nel"], r["nloc"] = st.conn.shape
+            out["k10"][f"{label} {tag}"] = r
+    return out
+
+
+def k10_k3_paths(cs, dev):
+    """The paths through K3 and K10: each one's warm step times, its full
+    solve (steps, seconds) and the device's busy share of its steps."""
+    import torch
+    from tigar_tpu_torch.demos import star_tspline_shell as star_demo
+    from tigar_tpu_torch.ops import cuda_ext
+    out = {}
+
+    def steps(ns, U, step_s, polish_s):
+        """A production and a polish step at U: their wall times and the
+        device's busy share of each (None where nothing was recorded)."""
+        busy = cs.profile_steps(ns, U, {"production step": step_s,
+                                        "polish step": polish_s})
+        return dict(busy_step_ms=step_s * 1e3, polish_ms=polish_s * 1e3,
+                    busy_production=busy.get("production step"),
+                    busy_polish=busy.get("polish step"))
+
+    # the shell (StencilNewton)
+    ns, _ = cs.build_solver(cs.NEL, dev)
+    U1, rn, _ = ns.step(torch.zeros(ns.spline.ndof, dtype=torch.float64,
+                                    device=dev))
+    float(rn)
+    step_s = cs.best_of_3(lambda: ns.step(U1))
+    cuda_ext.reset_counts()
+    t0 = time.perf_counter()
+    Usol, rel64, nsteps, _ = ns.solve(rtol=1e-10)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    levels = cs.k3_levels("shell")
+    polish_s = cs.best_of_3(lambda: ns.polish_step(U1))
+    out["shell"] = dict(step_ms=step_s * 1e3, solve_s=t_solve,
+                        steps=nsteps, rel64=rel64, k3_by_grid=levels,
+                        **steps(ns, U1, step_s, polish_s))
+
+    # the two-patch shell, penalty and Nitsche couplings
+    t0 = time.perf_counter()
+    ns_tp, cpl, sizes = cs.build_two_patch(dev)
+    Utp, rel, _, _, times = cs.two_patch_main_path(
+        ns_tp, cpl, sizes, time.perf_counter() - t0)
+    out["two_patch_penalty"] = dict(
+        rel64=rel, **times, **steps(ns_tp, Utp,
+                                    cs.best_of_3(lambda: ns_tp.step(Utp)),
+                                    cs.best_of_3(
+                                        lambda: ns_tp.polish_step(Utp))))
+    t0 = time.perf_counter()
+    ns_nit, cpl_nit, _ = cs.build_two_patch(
+        dev, coupling="nitsche", splines=[ns_tp.spline, *ns_tp.mg_splines])
+    Unit, rel, _, _, times = cs.two_patch_nitsche_main_path(
+        ns_nit, cpl_nit, sizes, time.perf_counter() - t0)
+    out["two_patch_nitsche"] = dict(
+        rel64=rel, **times, **steps(ns_nit, Unit,
+                                    cs.best_of_3(lambda: ns_nit.step(Unit)),
+                                    cs.best_of_3(
+                                        lambda: ns_nit.polish_step(Unit))))
+    del ns_tp, ns_nit
+
+    # the 128^2 shell through SANewton, its U held to the stencil
+    # solution, and the star T-spline through the demo's entry point (the
+    # host SA setups are timed inside the solves, not apart: nan)
+    ns_sa = cs.sa_solver(ns.spline, ns.adjoint)
+    Usa, _, times = cs.sa_main_path(ns_sa, Usol, float("nan"))
+    out["sa_newton"] = dict(**times, **steps(
+        ns_sa, Usa, cs.best_of_3(lambda: ns_sa.step(Usa)),
+        cs.best_of_3(lambda: ns_sa.polish_step(Usa))))
+    del ns_sa
+    ns_ts = star_demo.build(cs.TS_NEL, dev)
+    run, _, Uts = cs.ts_main_path(ns_ts, float("nan"))
+    out["star"] = dict(
+        step_ms=run["step32_s"] * 1e3, solve_s=run["solve_s"],
+        steps=run["steps"], rel64=run["rel64"],
+        sa_setup_s=sum(run["sa_setup_s"]),
+        **steps(ns_ts, Uts, cs.best_of_3(lambda: ns_ts.step(Uts)),
+                cs.best_of_3(lambda: ns_ts.polish_step(Uts))))
+    return out
+
+
+def k10_k3(cs, dev, timed):
+    out = k10_k3_kernels(cs, dev, timed)
+    out.update(k10_k3_paths(cs, dev))
+    return out
+
+
+WHAT = {"k12_k5": k12_k5, "shell": shell, "k10_k3": k10_k3}
 
 
 def main():
@@ -145,9 +322,13 @@ def main():
     out = {"what": args.what, "label": args.label, "tree": tree,
            "card": cs.CARD, "build_s": time.time() - t0}
 
-    def timed(fn, reps):
-        return {"ms": cs.cuda_ms(fn, reps),
-                "device_ms": cs.library_device_ms(fn, reps)[0]}
+    def timed(fn, reps, match=None, per_call=1):
+        """CUDA-event ms a call; device ms a call of every device event
+        (``library_device_ms``) or, with ``match``, of the kernels whose
+        name holds it, ``per_call`` of them a call (``device_ms``)."""
+        dev = (cs.library_device_ms(fn, reps)[0] if match is None
+               else cs.device_ms(fn, reps, match, per_call)[0])
+        return {"ms": cs.cuda_ms(fn, reps), "device_ms": dev}
 
     out.update(WHAT[args.what](cs, dev, timed))
     line = json.dumps(out)

@@ -2,10 +2,13 @@
 twins, on the card (K1-K3 on the nel=8 clamped SVK shell plate, K4 on
 small 2D/3D sum-factorized operators; K3's patch mode, K2 on a patch's
 element range and K5-K9 on the small two-patch plate and the three-patch
-L of the CPU tests; K2's element mode, K10 and K11, and the SANewton path
-through them, on the nel=8 plate; K1 and K2's element mode at 48 local
-functions (9 and 16 points) on the small star T-spline and a ragged
-extraction, and the star's SANewton solve through them; K12 on small 2D/3D Poisson splines and
+L of the CPU tests; K3 also on the grids of the shell's V-cycle levels
+and on two-patch plates up to 64 x 96 elements; K2's element mode, K10
+and K11, and the SANewton path through them, on the nel=8 plate; K1, K2's
+element mode and K10 at 48 local functions (9 and 16 points) on the small
+star T-spline and a ragged extraction, the symmetry of the element
+matrices K10 takes as symmetric, and the star's SANewton solve through
+them; K12 on small 2D/3D Poisson splines and
 the two-level SA cycle through K11, with the generic form path's
 refinement and sa_cg solves through them; K13/K14 on contact strips of
 36, 1,024 and 1,089 points, and the reef-knot demo's step at NEL=6
@@ -25,7 +28,10 @@ atomics, one dot product of m terms per row); K12 (f32 only) 1e-6, and
 2e-6 against the f64 AD tangent action (tests/test_fastpath.py); K13/K14
 f64 1e-12, f32 1e-5 (no atomics: each row is one warp's sum); K15/K16
 f64 1e-12, f32 1e-5 (no atomics, another sum order than the plain
-chains).
+chains).  K10 reads E's upper triangle for both halves, so it differs from
+the full-E plain version by E's asymmetry as well: measured on the card
+at 1.0e-15 (f64) and 6.7e-7 (f32) of max |E| (PERF.md), far inside
+its 1e-12 / 1e-5; E_ASYM_TOL bounds that asymmetry.
 """
 
 import numpy as np
@@ -49,6 +55,9 @@ pytestmark = pytest.mark.cuda
 
 E_mod, nu, h_th, q = 1.0e7, 0.3, 0.03, 100.0
 DENSITY = SVKShellAdjoint(E_mod, nu, h_th, load=(0.0, 0.0, -q))
+# max |E - E^T| / max |E| allowed of the element matrices K10 takes as
+# symmetric (PERF.md: measured on the card at both SANewton paths)
+E_ASYM_TOL = {"f64": 1e-13, "f32": 1e-5}
 
 
 @pytest.fixture(scope="module")
@@ -119,11 +128,14 @@ def test_tangent_stencil_kernel_f64(cuda):
     assert _rel(S_k, S_t) <= 1e-12
 
 
-@pytest.mark.parametrize("nel", [8, 4])
+@pytest.mark.parametrize("nel", [8, 4, 16, 32, 64])
 @pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_stencil_apply_kernel(cuda, nel, mode, dtype, tol):
+    """K3 on the grids of the shell's V-cycle levels (nel 64, 32, 16: 66^2,
+    34^2, 18^2) and two smaller ones, every mode, with and without the BC
+    mask."""
     spline = _build(nel, cuda)
     asm = spline._assembler("dx").astype(dtype)
     U = _state(spline, seed=3, amp=0.05).to(dtype)
@@ -233,10 +245,11 @@ def _two_patch(cuda, dims=(4, 4, 6)):
     return sp, shell_coupling("torch", sp, MP_PD, MP_PR)
 
 
-def _mp_solver(cuda):
+def _mp_solver(cuda, dims=(8, 8, 12)):
     from tigar_tpu_torch.solvers.newton_stencil_mp import (
         MultiPatchStencilNewton)
-    (sp, cp), (sc, cc) = _two_patch(cuda, (8, 8, 12)), _two_patch(cuda)
+    (sp, cp), (sc, cc) = (_two_patch(cuda, dims),
+                          _two_patch(cuda, tuple(d // 2 for d in dims)))
     return MultiPatchStencilNewton(sp, DENSITY, cp, mg_splines=[sc],
                                    mg_couplings=[cc], cg_iters=15,
                                    polish_cg_iters=20, build_quad_degree=2,
@@ -339,13 +352,16 @@ def test_iface_block_kernel_sizes(cuda, m, offset, dtype, tol):
             assert _rel(y_k - out, y_t - out) <= tol
 
 
+@pytest.mark.parametrize("nel", [8, 16, 32, 64])
 @pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_stencil_apply_patch_mode(cuda, mode, dtype, tol):
+def test_stencil_apply_patch_mode(cuda, nel, mode, dtype, tol):
     """K3 reading and writing one patch in place of the field-major
-    multi-patch vector, against the copy-out/copy-back plain version."""
-    ns = _mp_solver(cuda)
+    multi-patch vector, against the copy-out/copy-back plain version, on
+    two-patch plates of nel x nel and nel x 3 nel / 2 elements (patch
+    grids up to 66 x 98)."""
+    ns = _mp_solver(cuda, (nel, nel, nel + nel // 2))
     op = ns._build(ns.asm_b32, _state(ns.spline, seed=10,
                                       amp=0.01).float()).astype(dtype)
     g = torch.Generator().manual_seed(11)
@@ -528,25 +544,39 @@ def test_tangent_elements_kernel(cuda, masked, dtype, tol):
     assert _rel(E_k, E_t) <= tol
 
 
-def _elem_case(cuda, dtype):
+def _elem_spline(cuda, case):
+    """The spline, shell assembler, density and element BC mask (times the
+    padding mask of ragged elements) of a SANewton path: the nel=8 plate
+    (27 local functions), the star T-spline of make_star_extraction(3, 4)
+    or the ragged extraction of tests/test_tsplines.py:144 (48)."""
+    if case == "plate":
+        spline = _build(8, cuda)
+        asm = spline._assembler("dx")
+        return spline, asm, DENSITY, spline.mask[asm.cat_conn]
+    spline, asm = _tspline_asm(case, cuda)
+    me = spline.mask[asm.cat_conn] * asm.masks[0].repeat(1, 3)
+    return spline, asm, TS_DENSITY, me
+
+
+def _elem_case(cuda, dtype, case="plate"):
     from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
-    spline = _build(8, cuda)
-    asm = spline._assembler("dx")
-    me = spline.mask[asm.cat_conn]
-    E = element_matrices_adjoint_ref(asm, DENSITY, _state(spline, amp=0.01),
-                                     me)
+    spline, asm, dens, me = _elem_spline(cuda, case)
+    E = element_matrices_adjoint_ref(asm, dens, _state(spline, amp=0.01), me)
     g = torch.Generator().manual_seed(2)
     x = torch.randn(spline.ndof, generator=g, dtype=torch.float64)
     return (asm.cat_conn.contiguous(), E.to(dtype), x.to(cuda, dtype),
             spline.mask.to(dtype))
 
 
+@pytest.mark.parametrize("case", ["plate", "star", "ragged"])
 @pytest.mark.parametrize("what", ["apply", "masked", "diagonal"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_elem_tangent_kernel(cuda, what, dtype, tol):
+def test_elem_tangent_kernel(cuda, case, what, dtype, tol):
+    """K10 (which reads E's upper triangle) against the full-E plain
+    version at 27 and 48 local functions, padded elements included."""
     from tigar_tpu_torch.ops import sparse
-    conn, E, x, m = _elem_case(cuda, dtype)
+    conn, E, x, m = _elem_case(cuda, dtype, case)
     cuda_ext.reset_counts()
     if what == "diagonal":
         y_k = sparse.elem_tangent_diagonal(conn, E, x.numel())
@@ -560,6 +590,21 @@ def test_elem_tangent_kernel(cuda, what, dtype, tol):
     torch.cuda.synchronize()
     assert cuda_ext.counts()[name] == 1
     assert y_k.dtype == dtype and _rel(y_k, y_t) <= tol
+
+
+@pytest.mark.parametrize("case", ["plate", "star", "ragged"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, E_ASYM_TOL["f64"]),
+                                       (torch.float32, E_ASYM_TOL["f32"])])
+def test_elem_tangents_are_symmetric(cuda, case, dtype, tol):
+    """The premise of K10's upper-triangle read: the element matrices that
+    K2's element mode builds for the SANewton paths are symmetric up to
+    rounding, max |E - E^T| <= tol max |E|."""
+    spline, asm, dens, me = _elem_spline(cuda, case)
+    E = asm.astype(dtype).element_matrices_adjoint(
+        dens, _state(spline, amp=0.01).to(dtype), me=me.to(dtype))
+    torch.cuda.synchronize()
+    assert float((E - E.transpose(1, 2)).abs().max()
+                 / E.abs().max()) <= tol
 
 
 def _sa_hierarchy(cuda, fine=False):

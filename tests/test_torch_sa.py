@@ -7,6 +7,9 @@ polish_cg_iters=80, coarse_size=100):
   - masked element matrices: f64 1e-12, f32 1e-5 (float32 jet-Jacobians);
   - ElemTangent apply, BC'd apply and diagonal on identical E: f64 1e-12,
     f32 1e-5;
+  - the port's masked f64 element matrices of the plate and of the nel=4
+    star T-spline are symmetric to 1e-13 (kernel K10 reads their upper
+    triangles);
   - MultilevelSA.from_coo on the identical BC'd coo operator: level sizes
     equal, ELL arrays and om_dinv 1e-12, coarse inverse 1e-10;
   - one V and one W cycle, linear and quadratic near-kernels, on the JAX
@@ -78,6 +81,26 @@ def test_element_matrices_match_jax(jax_run, tag, tol):
     assert st.E.dtype == asm.dtype
     assert np.array_equal(st.conn.numpy(), jax_run["conn"])
     assert rel(st.E, jax_run["E" + tag]) <= tol
+
+
+@pytest.mark.parametrize("case", ["plate", "star"])
+def test_plain_element_matrices_are_symmetric(jax_run, case):
+    """The premise of kernel K10's upper-triangle read: the port's plain
+    masked f64 element matrices, of the nel=8 plate at the first step's
+    result and of the nel=4 star T-spline (1e-3 N(0, 1) on its free DoFs),
+    are symmetric: max |E - E^T| <= 1e-13 max |E|."""
+    if case == "plate":
+        ns = _port()
+        U = torch.as_tensor(jax_run["U1"])
+    else:
+        from tigar_tpu_torch.demos import star_tspline_shell as demo
+        ns = demo.build(4, "cpu")
+        U = ns.mask64 * torch.as_tensor(
+            np.random.default_rng(0).normal(size=ns.spline.ndof) * 1e-3)
+    E = ns._build(ns.asm64, U).E
+    assert E.dtype == F64
+    assert float((E - E.transpose(1, 2)).abs().max()
+                 / E.abs().max()) <= 1e-13
 
 
 def _jax_elem(jax_run, tag):

@@ -1,7 +1,8 @@
 """tigar_tpu_torch stencil operators against tigar_tpu on identical (random)
 stencil arrays (f64): every mode of the stencil-apply twin (kernel K3) at the
-nel=6 and nel=3 grids, the diagonal, stencil_to_dense, and the
-knot-insertion transfers.  rel = max |port - jax| / max |jax| <= 1e-12.
+nel=6 and nel=3 grids, and its patch mode on CPU tensors, the diagonal,
+stencil_to_dense, and the knot-insertion transfers.
+rel = max |port - jax| / max |jax| <= 1e-12.
 """
 
 import numpy as np
@@ -70,6 +71,38 @@ def test_stencil_apply_modes(case, mode, masked):
     out_ref = stencil_apply_ref(stt, T(x), mask=T(mask) if masked else None,
                                 b=T(b), dinv=T(dinv), omega=0.7, mode=mode)
     assert torch.equal(out, out_ref)
+
+
+@pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
+def test_stencil_apply_patch_mode_cpu(case, mode):
+    """Patch mode on CPU tensors (the plain version): the stencil's grid
+    read and written in place at ``base + f * fstride`` of a longer
+    vector, equal to the apply on the grid alone, the rest untouched."""
+    _, stt, mask, x, b = case
+    n = int(np.prod(stt.grid_shape))
+    base, fstride = 5, n + 7
+    rows = [slice(base + f * fstride, base + f * fstride + n)
+            for f in range(3)]
+    rng = np.random.default_rng(1)
+    big = [torch.as_tensor(rng.normal(size=base + 3 * fstride))
+           for _ in range(4)]
+    d = mask * np.asarray(stt.diagonal()) + (1.0 - mask)
+    for v, small in zip(big, (x, mask, b, 1.0 / d)):
+        for f, r in enumerate(rows):
+            v[r] = torch.as_tensor(small.reshape(3, n)[f])
+    X, M, B, D = big
+    out = torch.full_like(X, 3.0)
+    got = stencil_apply(stt, X, mask=M, b=B, dinv=D, omega=0.7, mode=mode,
+                        out=out, base=base, fstride=fstride)
+    T = torch.as_tensor
+    ref = stencil_apply(stt, T(x), mask=T(mask), b=T(b), dinv=T(1.0 / d),
+                        omega=0.7, mode=mode)
+    assert got is out
+    assert torch.equal(torch.cat([out[r] for r in rows]), ref)
+    keep = torch.ones_like(out, dtype=torch.bool)
+    for r in rows:
+        keep[r] = False
+    assert bool((out[keep] == 3.0).all())
 
 
 def test_call_and_diagonal(case):

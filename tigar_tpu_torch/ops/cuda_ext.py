@@ -9,7 +9,8 @@ plain C++ launchers (no PyTorch headers) and one binding file,
 for the process.  Nothing is built at import time.
 
 Each kernel wrapper calls ``count(name)`` right after it launches its
-kernel, so a run can prove which kernels its main path went through.
+kernel, so a run can prove which kernels its main path went through; K3's
+also gives its grid, so a run can count its launches by multigrid level.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ KERNELS = ("shell_residual", "tangent_stencil", "stencil_apply",
            "sumfac_scatter_jets")
 
 _launches = {k: 0 for k in KERNELS}
+_by_key = {}
 _ext = None
 build_seconds = None
 
@@ -67,14 +69,25 @@ def load(verbose=False):
     return _ext
 
 
-def count(name):
+def count(name, key=None):
+    """One launch of kernel ``name``; ``key`` (a shape, say) also tallies
+    it apart, for ``counts_by``."""
     _launches[name] += 1
+    if key is not None:
+        _by_key[name, key] = _by_key.get((name, key), 0) + 1
 
 
 def reset_counts():
     for k in _launches:
         _launches[k] = 0
+    _by_key.clear()
 
 
 def counts():
     return dict(_launches)
+
+
+def counts_by(name):
+    """The launches of ``name`` since the last reset, by the key its
+    wrapper gave."""
+    return {k: c for (n, k), c in _by_key.items() if n == name}

@@ -6,7 +6,8 @@ Two hand kernels live behind this module:
   - K10 (csrc/elem_tangent.cu), ``elem_tangent_apply`` and
     ``elem_tangent_diagonal`` on CUDA tensors: the element-batch tangent
     y = scatter(conn, E x[conn]), fused with the BC mask (m * A(m * x) +
-    (1 - m) x), and its diagonal.  Replaces tigar_tpu/solvers/newton_sa.py
+    (1 - m) x), reading E's upper triangle only (E is the Hessian of an
+    energy), and its diagonal.  Replaces tigar_tpu/solvers/newton_sa.py
     ElemTangent.__call__ / .diagonal and _masked_act.  Plain versions:
     the ``*_ref`` functions (gather, einsum, index_add_).
   - K11 (csrc/ell_spmv.cu), ``ell_spmv`` on CUDA tensors: the padded-row
@@ -33,8 +34,9 @@ def elem_tangent_apply(conn, E, x, mask=None):
     """Element-batch operator action (conn [nel, nloc] global DoF indices
     into x, E [nel, nloc, nloc]): scatter(conn, E (m x)[conn]) m +
     (1 - m) x, the BC'd action, or the plain scatter(conn, E x[conn])
-    when ``mask`` is None.  CUDA tensors run kernel K10; CPU tensors run
-    ``elem_tangent_apply_ref``."""
+    when ``mask`` is None.  CUDA tensors run kernel K10, which reads E's
+    upper triangle and so takes E as symmetric (the SANewton tangents are
+    Hessians); CPU tensors run ``elem_tangent_apply_ref``."""
     if E.is_cuda:
         return elem_tangent_apply_cuda(conn, E, x, mask)
     return elem_tangent_apply_ref(conn, E, x, mask)
@@ -78,10 +80,10 @@ def _check_elem(conn, E):
 
 
 def elem_tangent_apply_cuda(conn, E, x, mask=None):
-    """Kernel K10: one block per element; the element matrix and the
-    gathered (masked) local coefficients in shared memory, one thread per
-    local row, atomicAdd of the masked row sums into y, whose (1 - m) x
-    part a first pass writes."""
+    """Kernel K10: E's upper triangles (E is symmetric) copied into shared
+    memory, several elements a block, one thread per (element, local row)
+    summing its row from the triangle, atomicAdd of the masked row sums
+    into y, whose (1 - m) x part a first launch writes."""
     _check_elem(conn, E)
     for name, t in (("x", x), ("mask", mask)):
         if t is None:

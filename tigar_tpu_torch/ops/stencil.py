@@ -49,6 +49,7 @@ class StencilOperator:
         self.grid_shape = tuple(int(n) for n in grid_shape)
         self.degrees = tuple(int(p) for p in degrees)
         self.nf = int(nf)
+        self._k3_checked = None         # the S that kernel K3 last accepted
 
     @property
     def ndof(self):
@@ -151,52 +152,59 @@ def stencil_apply_ref(st, x, mask=None, b=None, dinv=None, omega=0.0,
     raise ValueError(f"unknown stencil mode {mode!r}")
 
 
+def _k3_stencil(st):
+    """The operator's S for kernel K3, checked once per S (what the
+    binding cannot see: nf, degrees and the grid; CUDA, float32 or
+    float64, contiguous)."""
+    S = st.S
+    if st._k3_checked is not S:
+        if not S.is_cuda:
+            raise ValueError("stencil kernel needs CUDA tensors")
+        if st.nf != 3 or st.degrees != (2, 2):
+            raise ValueError("stencil kernel is built for nf=3, p=2 in 2D")
+        if S.shape != (3, 3, 5, 5) + st.grid_shape:
+            raise ValueError(f"stencil shape {tuple(S.shape)}")
+        if S.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"stencil dtype {S.dtype}")
+        if not S.is_contiguous():
+            return S.contiguous()
+        st._k3_checked = S
+    return S
+
+
 def stencil_apply_cuda(st, x, mask=None, b=None, dinv=None, omega=0.0,
                        mode="apply", out=None, base=0, fstride=None):
-    """Kernel K3: one thread per grid point, all nf output fields, the
-    (2p+1)^2 x nf x nf window read straight from S (nf=3, p=2, 2D); in
-    patch mode it reads and writes the patch in place through ``base`` and
-    the field stride."""
-    if mode not in MODES:
+    """Kernel K3: 9 threads a grid point (one per output and input field
+    pair) over 2D tiles, the tile's mask * x staged once in shared memory
+    (nf=3, p=2, 2D); in patch mode it reads and writes the patch in place
+    through ``base`` and the field stride.  The checks that depend only on
+    the stencil run once per S; the binding checks every vector (shape,
+    dtype, device, contiguity) and the patch's fit, and raises
+    RuntimeError."""
+    code = MODES.get(mode)
+    if code is None:
         raise ValueError(f"unknown stencil mode {mode!r}")
-    S = st.S
-    if not (x.is_cuda and S.is_cuda):
-        raise ValueError("stencil kernel needs CUDA tensors")
-    if st.nf != 3 or st.degrees != (2, 2):
-        raise ValueError("stencil kernel is built for nf=3, p=2 in 2D")
-    if S.shape != (3, 3, 5, 5) + st.grid_shape:
-        raise ValueError(f"stencil shape {tuple(S.shape)}")
-    if x.dtype != S.dtype or x.dtype not in (torch.float32, torch.float64):
+    S = _k3_stencil(st)
+    if x.dtype != S.dtype:
         raise TypeError(f"x {x.dtype} vs stencil {S.dtype}")
-    n = int(np.prod(st.grid_shape))
+    if code and b is None:
+        raise ValueError(f"mode {mode!r} needs b")
+    if code == 2 and dinv is None:
+        raise ValueError(f"mode {mode!r} needs dinv")
     if fstride is None:
         if out is not None or base != 0:
             raise ValueError("out and base are patch-mode arguments")
-        length, base, fstride = st.ndof, 0, n
+        fstride = S.shape[4] * S.shape[5]
+    elif out is None:
+        raise ValueError("patch mode writes into out")
     else:
-        if out is None:
-            raise ValueError("patch mode writes into out")
-        length = x.shape[0]
-        if base < 0 or fstride < n or base + 2 * fstride + n > length:
-            raise ValueError(f"patch (base {base}, field stride {fstride}) "
-                             f"of {n} points does not fit {length} DoFs")
-    need = {"apply": (), "residual": ("b",), "jacobi": ("b", "dinv")}[mode]
-    vecs = {"x": x, "mask": mask, "b": b, "dinv": dinv, "out": out}
-    for k, v in vecs.items():
-        if v is None:
-            if k in need:
-                raise ValueError(f"mode {mode!r} needs {k}")
-            continue
-        if v.shape != (length,) or v.dtype != x.dtype or not v.is_cuda \
-                or not v.is_contiguous():
-            raise ValueError(f"{k}: shape {tuple(v.shape)} dtype {v.dtype}")
-        if k != "out" and out is not None and \
-                v.data_ptr() == out.data_ptr():
-            raise ValueError(f"out must not alias {k}")
-    ext = cuda_ext.load()
-    y = ext.stencil_apply(S.contiguous(), x, mask, b, dinv, float(omega),
-                          MODES[mode], out, int(base), int(fstride))
-    cuda_ext.count("stencil_apply")
+        p = out.data_ptr()
+        for k, v in (("x", x), ("mask", mask), ("b", b), ("dinv", dinv)):
+            if v is not None and v.data_ptr() == p:
+                raise ValueError(f"out must not alias {k}")
+    y = cuda_ext.load().stencil_apply(S, x, mask, b, dinv, float(omega), code,
+                                      out, int(base), int(fstride))
+    cuda_ext.count("stencil_apply", st.grid_shape)
     return y
 
 
