@@ -102,7 +102,10 @@ Phases, each fatal on failure (nothing is caught):
      mode (f32 and f64) with the asymmetry max |E - E^T| / max |E| of
      its matrices (K10 reads their upper triangles), K10 (apply, BC'd
      apply, diagonal; f32 and f64) and K11 (A, P and P^T of every SA
-     level; f32) against their plain
+     level on their sliced layouts, every mode each takes: apply,
+     residual, the Jacobi sweep, the first sweep from x = 0 and the
+     correction b + A x; f32; fill, nonzero and layout bounds) against
+     their plain
      versions, K10/K11 also against torch.sparse CSR products; the SA
      level sizes and the host setup seconds; the best of 3 warm f32
      steps; the full solve with every launch count reset just before it
@@ -155,8 +158,10 @@ Phases, each fatal on failure (nothing is caught):
      against their plain versions, f64 1e-12 and f32 1e-5 of the largest
      entry, on the 128^2 shell's three fields and its control net at
      nders 2, the 24^3 continuity_drop=1 Poisson field at nders 1, a
-     small periodic (gather) field and the small RT pair, with CUDA-event
-     and device times and byte bounds, and, at the shell's fields and the
+     small periodic (gather) field and the small RT pair (K16: its two
+     launches, element-local window slots then their sums a coefficient),
+     with CUDA-event and device times and byte bounds, and, at the shell's
+     fields and the
      24^3 field (f64, f32), their library yardstick: the same linear jet
      map as one torch.sparse CSR matrix J (K15: J @ W; K16: J^T @ F),
      built by probing the plain version in colors, CUDA events and
@@ -448,10 +453,11 @@ def csr_rows(keep, vals, cols, dtype=torch.float32):
         vals[keep].to(dtype), (n, n), check_invariants=True)
 
 
-def stencil_csr(st, mask):
+def stencil_csr(st, mask, dtype=torch.float32):
     """K3's apply mode with a mask, mask A (mask x) + (1 - mask) x, as one
-    f32 CSR matrix: row (f, iy, ix) holds column (g, iy + oy, ix + ox) of
-    S[f, g, oy, ox, iy, ix] (zero padding, as K3), masked-out entries
+    CSR matrix of ``dtype``: row (f, iy, ix) holds column (g, iy + oy,
+    ix + ox) of S[f, g, oy, ox, iy, ix] (zero padding, as K3), masked-out
+    entries
     dropped, 1 - mask added on the diagonal."""
     S = st.S.to(torch.float64)
     nf, (ny, nx), (py, px) = st.nf, st.grid_shape, st.degrees
@@ -475,7 +481,7 @@ def stencil_csr(st, mask):
     k = nf * (2 * py + 1) * (2 * px + 1)
     return csr_rows(keep.reshape(nf * n, k), vals.reshape(nf * n, k),
                    cols[None].expand(nf, -1, -1, -1, -1, -1)
-                   .reshape(nf * n, k))
+                   .reshape(nf * n, k), dtype)
 
 
 def shell_certificate(ns, Usol, rel64, dU_rel, label="shell"):
@@ -566,7 +572,7 @@ def kernel_phases(ns):
                         tol, 50, 10, rec["stencil_apply"],
                         match="stencil_apply_kernel" if timed else None,
                         work=stencil_work(st, mode))
-                if tag == "f32" and mode == "apply":
+                if mode == "apply" and (tag == "f32" or lname == "fine"):
                     stencil_library(st, m, x, rec["stencil_apply"][-1])
     return rec
 
@@ -581,18 +587,32 @@ def stencil_work(st, mode):
             st.S.dtype)
 
 
-def stencil_library(st, m, x, entry):
+def stencil_library(st, m, x, entry, patch=None):
     """The library yardstick of K3's apply mode: the same BC'd operator as
-    one f32 torch.sparse CSR matrix applied with ``@`` (CUDA events of the
-    call alone; the profiler's device time later)."""
+    one torch.sparse CSR matrix of the stencil's type applied with ``@``
+    (CUDA events of the call alone; the profiler's device time later).  In
+    patch mode (``patch`` = (base, field stride)) the matrix has the
+    patch's rows and its columns at the patch's positions in x."""
     from tigar_tpu_torch.ops.stencil import stencil_apply
-    A = stencil_csr(st, m)
-    err = rel_diff(torch.mv(A, x), stencil_apply(st, x, mask=m))
+    if patch is None:
+        A = stencil_csr(st, m, st.S.dtype)
+        ref = stencil_apply(st, x, mask=m)
+    else:
+        n = int(np.prod(st.grid_shape))
+        pos = torch.cat([torch.arange(n, device=x.device) + patch[0]
+                         + f * patch[1] for f in range(st.nf)])
+        Ap = stencil_csr(st, m[pos], st.S.dtype)
+        A = torch.sparse_csr_tensor(
+            Ap.crow_indices(), pos[Ap.col_indices().long()].to(torch.int32),
+            Ap.values(), (Ap.shape[0], x.numel()))
+        ref = stencil_apply(st, x, mask=m, out=torch.zeros_like(x),
+                            base=patch[0], fstride=patch[1])[pos]
+    err = rel_diff(torch.mv(A, x), ref)
     entry["library_ms"] = cuda_ms(lambda A=A, x=x: torch.mv(A, x), 50)
     entry["library_probe"] = (lambda A=A, x=x: torch.mv(A, x), 50)
-    say(f"    library yardstick torch.sparse CSR f32 @ x ({A._nnz()} "
-        f"entries, {st.ndof} rows): {entry['library_ms']:.4f} ms, rel diff "
-        f"{err:.1e}")
+    say(f"    library yardstick torch.sparse CSR {x.dtype} @ x "
+        f"({A._nnz()} entries, {A.shape[0]} rows): "
+        f"{entry['library_ms']:.4f} ms, rel diff {err:.1e}")
 
 
 # -- the Poisson path ---------------------------------------------------------
@@ -1260,6 +1280,9 @@ def iface_kernel_phases(ns, cpl, rec):
                             s, x, out=o, **kw),
                         tol, 10, 3, rec["stencil_apply"],
                         work=stencil_work(st, mode))
+                if mode == "apply":
+                    stencil_library(st, mk, x, rec["stencil_apply"][-1],
+                                    (op.doffsets[p], op.doffsets[-1]))
 
 
 def two_patch_main_path(ns, cpl, sizes, setup_s):
@@ -1535,6 +1558,79 @@ def elem_work(st, masked=True):
 
 
 SA_KEYS = ("tangent_elements", "elem_tangent_apply", "ell_spmv")
+# K11's modes on each op of an SA level: the square ones on A
+ELL_OP_MODES = {"A": ("apply", "residual", "jacobi", "jacobi0", "add"),
+                "P": ("apply", "residual", "add"),
+                "Pt": ("apply", "residual", "add")}
+ELL_VECTORS = {"apply": (1, 1), "residual": (1, 2), "jacobi": (0, 4),
+               "jacobi0": (0, 3), "add": (1, 2)}
+
+
+# K11's modes that one PyTorch call computes, on the CSR matrix A
+ELL_LIBRARY = {
+    "apply": lambda A, x, b: A @ x,
+    "residual": lambda A, x, b: torch.addmv(b, A, x, alpha=-1.0),
+    "add": lambda A, x, b: torch.addmv(b, A, x)}
+
+
+def ell_work(op, mode, layout=False):
+    """K11's work for ``bound`` on the EllOperator ``op``: its nonzeros
+    (with ``layout``, every slot of its sliced layout and the tile table)
+    read once as (column, value) pairs, the gathered vector read once and
+    the mode's row vectors read and y written (``ELL_VECTORS``: vectors of
+    ncols and of n entries; "jacobi" and "jacobi0" gather a row vector);
+    2 operations a nonzero."""
+    sl = op.card
+    es = sl.vals.element_size()
+    nnz, slots = sl.fill()
+    pairs = (slots * (4 + es) + nbytes(sl.tiles, sl.starts) if layout
+             else nnz * (4 + es))
+    per_col, per_row = ELL_VECTORS[mode]
+    return (pairs + (per_col * op.ncols + per_row * op.n) * es,
+            2.0 * nnz, sl.vals.dtype)
+
+
+def ell_phases(ops, om_dinv, label, g, record, probe=False):
+    """K11 on one SA level's (A, P, Pt) ``EllOperator``s in every mode their
+    shapes take (``ELL_OP_MODES``), f32 as the cycle runs, against the
+    carried arrays' plain version, with the nonzero and layout bounds, the
+    fill (nonzeros / layout slots) and, in each mode that one PyTorch call
+    computes, that call on the same matrix as a torch.sparse CSR tensor
+    (``ELL_LIBRARY``: ``@`` for apply, ``torch.addmv`` for residual and
+    add; the Jacobi modes have none)."""
+    from tigar_tpu_torch.ops import sparse
+    for name, op in zip(("A", "P", "Pt"), ops):
+        A = None
+        nnz, slots = op.card.fill()
+        K = int(op.card.width.max())
+        for mode in ELL_OP_MODES[name]:
+            x, b = (torch.randn(k, generator=g, dtype=torch.float64)
+                    .to(op.vals.device, op.vals.dtype)
+                    for k in (op.ncols, op.n))
+            a = (None if mode == "jacobi0" else x, b,
+                 om_dinv if mode in ("jacobi", "jacobi0") else None, mode)
+            compare(f"K11 ell_spmv {name} {mode} f32 {label} n={op.n} "
+                    f"K={K} fill={nnz / max(slots, 1):.3f}",
+                    lambda a=a, op=op: op(*a),
+                    lambda a=a, op=op: sparse.ell_spmv_ref(op.cols, op.vals,
+                                                           *a),
+                    TOL["f32"], 50, 5, record, match="ell_sliced_kernel",
+                    work=ell_work(op, mode))
+            e = record[-1]
+            e.update(n=op.n, K=K, nnz=nnz, slots=slots, op=name, mode=mode,
+                     level=label)
+            e["bound_layout_ms"] = bound(*ell_work(op, mode, True))[0]
+            if probe:
+                probe_device_time(e)
+            lib = ELL_LIBRARY.get(mode)
+            if lib is not None:
+                if A is None:
+                    rr = torch.arange(op.n, device=x.device)
+                    rr = rr[:, None].expand_as(op.cols).reshape(-1)
+                    A = csr_of(rr, op.cols.reshape(-1), op.vals.reshape(-1),
+                               (op.n, op.ncols))
+                e["library_ms"] = cuda_ms(
+                    lambda A=A, x=x, b=b, lib=lib: lib(A, x, b), 50)
 
 
 def residual_work(asm, dens, U):
@@ -1570,8 +1666,8 @@ def elements_work(asm, dens, U, me):
 def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
     """K2's element mode (f32 at the build rule, f64 for the polish
     tangent), K10 (apply, BC'd apply, diagonal; f32 and f64) and K11 (A,
-    P and P^T of every SA level, and A's residual and Jacobi modes; f32,
-    as the cycle runs) against their plain versions at the SANewton
+    P and P^T of every SA level in every mode each takes, ``ell_phases``;
+    f32, as the cycle runs) against their plain versions at the SANewton
     path's shapes, at a seeded smooth state.  K10's and K11's library
     yardstick is the same matrix as a torch.sparse CSR tensor applied with
     ``@``.  The records go to ``rec[k]`` for the three names of ``keys``;
@@ -1673,38 +1769,14 @@ def sa_kernel_phases(ns, U64, rec, keys=SA_KEYS, label="", probe=False):
     setup_s = time.perf_counter() - t0
     say(f"SA hierarchy: levels {sa.level_sizes}, host setup "
         f"{setup_s:.3f} s (scipy aggregation, QR, Galerkin products)")
-    for l, lv in enumerate(sa._levels):
-        nl = lv.A_cols.shape[0]
-        nc = sa.level_sizes[l + 1]
-        for op, cols, vals, ncol in (("A", lv.A_cols, lv.A_vals, nl),
-                                     ("P", lv.P_cols, lv.P_vals, nc),
-                                     ("Pt", lv.Pt_cols, lv.Pt_vals, nl)):
-            x, b = (torch.randn(k, generator=g, dtype=torch.float64)
-                    .to(U64.device, torch.float32)
-                    for k in (ncol, cols.shape[0]))
-            modes = ("apply", "residual", "jacobi") if op == "A" \
-                else ("apply",)
-            for mode in modes:
-                a = (cols, vals, x, b, lv.om_dinv, mode)
-                extra = {"apply": 0, "residual": 1, "jacobi": 2}[mode]
-                # reads cols, vals, x (and b, om_dinv), writes y
-                work = (nbytes(cols, vals, x) + (1 + extra) * 4 * cols.shape[0]
-                        + (4 * cols.shape[0] if mode == "jacobi" else 0),
-                        2.0 * vals.numel(), torch.float32)
-                compare(f"K11 ell_spmv {op} {mode} f32 level {l} "
-                        f"n={cols.shape[0]} K={cols.shape[1]}{label}",
-                        lambda a=a: sparse.ell_spmv(*a),
-                        lambda a=a: sparse.ell_spmv_ref(*a),
-                        TOL["f32"], 50, 5, rec[k_ell],
-                        match="ell_spmv_kernel", work=work)
-                done(k_ell)
-                if mode == "apply":
-                    rr = torch.arange(cols.shape[0], device=x.device)
-                    rr = rr[:, None].expand_as(cols).reshape(-1)
-                    A = csr_of(rr, cols.reshape(-1), vals.reshape(-1),
-                               (cols.shape[0], ncol))
-                    rec[k_ell][-1]["library_ms"] = cuda_ms(
-                        lambda A=A, x=x: A @ x, 50)
+    for l, ops in enumerate(sa._ops):
+        lv = sa._levels[l]
+        if ops[0] is None:      # level 0 runs the fine operator (K10)
+            ops = (sparse.EllOperator(lv.A_cols, lv.A_vals,
+                                      lv.om_dinv.shape[0], key="A0"),
+                   ) + ops[1:]
+        ell_phases(ops, lv.om_dinv, f"level {l}{label}", g, rec[k_ell],
+                   probe)
     return setup_s
 
 
@@ -1741,7 +1813,8 @@ def sa_main_path(ns, U_stencil, setup_s):
         f"|r| = {rel64:.3e}, |dU|/|U| = {dU_rel:.3e}; peak device memory "
         f"{peak_gb:.3f} GiB; max |U_SA - U_stencil| / max |U_stencil| "
         f"{err:.3e} (bound 1e-7)")
-    say(f"SANewton main-path kernel launches: {launches}")
+    say(f"SANewton main-path kernel launches: {launches}; K11 by (op, "
+        f"mode): {cuda_ext.counts_by('ell_spmv')}")
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("SANewton solution is not finite or has the wrong "
                          "shape")
@@ -1873,7 +1946,9 @@ def ts_main_path(ns, setup_sa_s):
         f"f64_accurate={out['f64_accurate']}; {len(out['sa_setup_s'])} "
         f"host SA setups in the solve, {sum(out['sa_setup_s']):.3f} s "
         f"({sum(out['sa_setup_s']) / out['solve_s']:.4f} of it)")
-    say(f"star T-spline main-path kernel launches: {launches}")
+    from tigar_tpu_torch.ops import cuda_ext
+    say(f"star T-spline main-path kernel launches: {launches}; K11 by "
+        f"(op, mode): {cuda_ext.counts_by('ell_spmv')}")
     if tuple(U.shape) != (out["ndof"],) or not bool(torch.isfinite(U).all()):
         raise SystemExit("star T-spline solution is not finite or has the "
                          "wrong shape")
@@ -2020,35 +2095,16 @@ def fastpath_kernel_phases(sp, rec):
 
 
 def twolevel_kernel_phases(pre, rec):
-    """K11 in the two-level cycle's modes on the ELL copy of its operator
-    (B9b's shape) against the plain version, with the torch.sparse CSR
-    yardstick; the whole cycle through K11 against the plain coo cycle."""
-    from tigar_tpu_torch.ops import sparse
+    """K11 in every mode on the two-level cycle's ELL operator (B9b's
+    shape, ``ell_phases``) against the plain version, with the torch.sparse
+    CSR yardstick; the whole cycle through K11 against the plain coo
+    cycle."""
     rec.setdefault("ell_spmv_twolevel", [])
-    cols, vals, om = pre._ell_cols, pre._ell_vals, pre._om_dinv
-    n, K = cols.shape
     g = torch.Generator().manual_seed(23)
-    x, b = (torch.randn(n, generator=g, dtype=torch.float64)
-            .to(vals.device, torch.float32) for _ in range(2))
-    for mode in ("jacobi", "residual"):
-        a = (cols, vals, x, b, om, mode)
-        extra = 2 if mode == "jacobi" else 1
-        # reads cols, vals, x (and b, om_dinv), writes y
-        work = (nbytes(cols, vals, x) + (1 + extra) * 4 * n,
-                2.0 * vals.numel(), torch.float32)
-        compare(f"K11 ell_spmv two-level A {mode} f32 n={n} K={K}",
-                lambda a=a: sparse.ell_spmv(*a),
-                lambda a=a: sparse.ell_spmv_ref(*a), TOL["f32"], 50, 5,
-                rec["ell_spmv_twolevel"], match="ell_spmv_kernel",
-                work=work)
-        if mode == "jacobi":
-            rr = torch.arange(n, device=x.device)[:, None].expand_as(cols)
-            A = csr_of(rr.reshape(-1), cols.reshape(-1), vals.reshape(-1),
-                       (n, n))
-            rec["ell_spmv_twolevel"][-1]["library_ms"] = cuda_ms(
-                lambda A=A, x=x: torch.mv(A, x), 50)
-    r = torch.randn(n, generator=g, dtype=torch.float64).to(vals.device,
-                                                              torch.float32)
+    op = pre._ell_op
+    ell_phases((op,), pre._om_dinv, "two-level", g, rec["ell_spmv_twolevel"])
+    r = torch.randn(op.n, generator=g, dtype=torch.float64).to(
+        op.vals.device, torch.float32)
     yk, yp = pre.apply32(r), pre.apply32_ref(r)
     err = rel_diff(yk, yp)
     say(f"    two-level cycle through K11 against the plain coo cycle: max "
@@ -2140,7 +2196,8 @@ def generic_path(device, rec):
     say(f"two-level sa_cg solve: {t_sa2:.3f} s, {it2} iterations, rel "
         f"{sp2.last_linear_solve['rel']:.3e}; max |U - U_cg| / max |U_cg| "
         f"{d_sa2:.3e} (bound {GP_TOL['solution']:g}); K11 launches "
-        f"{l_sa2['ell_spmv']}")
+        f"{l_sa2['ell_spmv']} (by op and mode "
+        f"{cuda_ext.counts_by('ell_spmv')})")
     if not (d_sa2 <= GP_TOL["solution"] and l_sa2["ell_spmv"] > 0):
         raise SystemExit("two-level sa_cg FAILED")
 
@@ -2654,7 +2711,8 @@ def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
     for label, lay64 in sf_layouts(device, shell_spline, shell_asm,
                                    poisson_asm):
         W64 = torch.as_tensor(rng.normal(size=lay64.n), device=device)
-        full = "fields" in label or "poisson" in label
+        full = ("fields" in label or "poisson" in label
+                or "control net" in label)
         if full:
             t0 = time.perf_counter()
             J64, Jt64 = jets_csr(lay64)
@@ -2701,9 +2759,9 @@ def sumfac_kernel_phases(device, shell_spline, shell_asm, poisson_asm, rec):
                     lambda c=cot, l=lay: sf.scatter_jets_plain(c, l),
                     SF_TOL[tag], 20 if full else 5, 3,
                     rec["sumfac_scatter_jets"],
-                    match="sumfac_scatter_jets_kernel",
+                    match="sumfac_scatter_jets_",
                     work=(sf_jets_bytes(lay, dt), 0.0, dt),
-                    per_call=len(lay.groups))
+                    per_call=2 * len(lay.groups))
             probe_device_time(rec["sumfac_scatter_jets"][-1])
             if full:
                 Jt = Jt64 if dt == torch.float64 else Jt64.to(dt)
@@ -3159,7 +3217,7 @@ def main():
             "elem_tangent_apply": "masked f32",
             "ell_spmv": "P apply f32 level 0",
             "laplace_apply": f"2D p=2 nel={GP_NEL}",
-            "ell_spmv_twolevel": "two-level A jacobi",
+            "ell_spmv_twolevel": "A jacobi f32 two-level",
             "contact_residual": "f64 (a)", "contact_tangent": "f32 (a)",
             "sumfac_jets": f"f64 shell fields {NEL}^2",
             "sumfac_scatter_jets": f"f64 shell fields {NEL}^2",

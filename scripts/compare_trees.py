@@ -3,7 +3,7 @@
 tigar_tpu_torch on one CUDA card, so that two versions of the port can be
 timed in turns on one card:
 
-    python scripts/compare_trees.py --what k12_k5|shell|k10_k3 \
+    python scripts/compare_trees.py --what k12_k5|shell|k10_k3|k11_k16 \
         --tree DIR --label NAME [--out FILE]
 
 imports ``tigar_tpu_torch`` from DIR (its kernels build into DIR/build)
@@ -46,6 +46,24 @@ matrix, with E's max |E - E^T| / max |E|; every kernel with its bound
 shell through SANewton and the star: warm step times, the full solve and
 the device's busy share of a production and a polish step
 (chip_smoke.py's ``profile_steps``), and K3's launches by grid.
+
+``--what k11_k16``: first, each part in a fresh process of its own
+(``--what k11_k16_part --part NAME``: later profiler sessions of a
+process drop launches), K11 (the SA levels' ELL products) on every level
+of the f32 SA hierarchies of the 128^2 shell's SANewton path and of the
+star T-spline (nel 48) at chip_smoke.py's seeded states, and on the two-
+level cycle of the 128^2 generic Poisson, in the modes the cycles run
+(the Jacobi sweep, the residual, the first sweep from x = 0, the coarse
+correction x + P z, Pt's product; a tree without the fused modes runs
+them as its cycle does, with their elementwise launches) and in the
+plain apply, each with n, K, its fill, its bounds by the bytes of the
+nonzeros and of the tree's layout, and the same matrix as one
+torch.sparse CSR product; one V-cycle of each hierarchy (ms, busy device
+ms, launches by kernel); then K16 (the sum-factorized jets' transpose)
+on the 24^3 drop-1 Poisson field and the 128^2 shell's fields (f64, f32)
+beside J^T @ F as one CSR product and the byte bound; the sumfac
+residual's best of 3 at 128^2 (f64, f32) and 24^3 (f64); then the
+SANewton 128^2 and star paths as ``k10_k3``.
 """
 
 import argparse
@@ -209,69 +227,28 @@ def k10_k3_kernels(cs, dev, timed):
     return out
 
 
-def k10_k3_paths(cs, dev):
-    """The paths through K3 and K10: each one's warm step times, its full
-    solve (steps, seconds) and the device's busy share of its steps."""
-    import torch
+def _steps(cs, ns, U, step_s, polish_s):
+    """A production and a polish step at U: their wall times and the
+    device's busy share of each (None where nothing was recorded)."""
+    busy = cs.profile_steps(ns, U, {"production step": step_s,
+                                    "polish step": polish_s})
+    return dict(busy_step_ms=step_s * 1e3, polish_ms=polish_s * 1e3,
+                busy_production=busy.get("production step"),
+                busy_polish=busy.get("polish step"))
+
+
+def sa_paths(cs, dev, ns, Usol):
+    """The 128^2 shell through SANewton, its U held to the stencil
+    solution ``Usol`` of ``ns``'s problem, and the star T-spline through
+    the demo's entry point: warm step times, the full solve and the busy
+    shares of their steps (the host SA setups are timed inside the solves,
+    not apart: nan)."""
     from tigar_tpu_torch.demos import star_tspline_shell as star_demo
-    from tigar_tpu_torch.ops import cuda_ext
     out = {}
-
-    def steps(ns, U, step_s, polish_s):
-        """A production and a polish step at U: their wall times and the
-        device's busy share of each (None where nothing was recorded)."""
-        busy = cs.profile_steps(ns, U, {"production step": step_s,
-                                        "polish step": polish_s})
-        return dict(busy_step_ms=step_s * 1e3, polish_ms=polish_s * 1e3,
-                    busy_production=busy.get("production step"),
-                    busy_polish=busy.get("polish step"))
-
-    # the shell (StencilNewton)
-    ns, _ = cs.build_solver(cs.NEL, dev)
-    U1, rn, _ = ns.step(torch.zeros(ns.spline.ndof, dtype=torch.float64,
-                                    device=dev))
-    float(rn)
-    step_s = cs.best_of_3(lambda: ns.step(U1))
-    cuda_ext.reset_counts()
-    t0 = time.perf_counter()
-    Usol, rel64, nsteps, _ = ns.solve(rtol=1e-10)
-    torch.cuda.synchronize()
-    t_solve = time.perf_counter() - t0
-    levels = cs.k3_levels("shell")
-    polish_s = cs.best_of_3(lambda: ns.polish_step(U1))
-    out["shell"] = dict(step_ms=step_s * 1e3, solve_s=t_solve,
-                        steps=nsteps, rel64=rel64, k3_by_grid=levels,
-                        **steps(ns, U1, step_s, polish_s))
-
-    # the two-patch shell, penalty and Nitsche couplings
-    t0 = time.perf_counter()
-    ns_tp, cpl, sizes = cs.build_two_patch(dev)
-    Utp, rel, _, _, times = cs.two_patch_main_path(
-        ns_tp, cpl, sizes, time.perf_counter() - t0)
-    out["two_patch_penalty"] = dict(
-        rel64=rel, **times, **steps(ns_tp, Utp,
-                                    cs.best_of_3(lambda: ns_tp.step(Utp)),
-                                    cs.best_of_3(
-                                        lambda: ns_tp.polish_step(Utp))))
-    t0 = time.perf_counter()
-    ns_nit, cpl_nit, _ = cs.build_two_patch(
-        dev, coupling="nitsche", splines=[ns_tp.spline, *ns_tp.mg_splines])
-    Unit, rel, _, _, times = cs.two_patch_nitsche_main_path(
-        ns_nit, cpl_nit, sizes, time.perf_counter() - t0)
-    out["two_patch_nitsche"] = dict(
-        rel64=rel, **times, **steps(ns_nit, Unit,
-                                    cs.best_of_3(lambda: ns_nit.step(Unit)),
-                                    cs.best_of_3(
-                                        lambda: ns_nit.polish_step(Unit))))
-    del ns_tp, ns_nit
-
-    # the 128^2 shell through SANewton, its U held to the stencil
-    # solution, and the star T-spline through the demo's entry point (the
-    # host SA setups are timed inside the solves, not apart: nan)
     ns_sa = cs.sa_solver(ns.spline, ns.adjoint)
     Usa, _, times = cs.sa_main_path(ns_sa, Usol, float("nan"))
-    out["sa_newton"] = dict(**times, **steps(
-        ns_sa, Usa, cs.best_of_3(lambda: ns_sa.step(Usa)),
+    out["sa_newton"] = dict(**times, **_steps(
+        cs, ns_sa, Usa, cs.best_of_3(lambda: ns_sa.step(Usa)),
         cs.best_of_3(lambda: ns_sa.polish_step(Usa))))
     del ns_sa
     ns_ts = star_demo.build(cs.TS_NEL, dev)
@@ -280,8 +257,64 @@ def k10_k3_paths(cs, dev):
         step_ms=run["step32_s"] * 1e3, solve_s=run["solve_s"],
         steps=run["steps"], rel64=run["rel64"],
         sa_setup_s=sum(run["sa_setup_s"]),
-        **steps(ns_ts, Uts, cs.best_of_3(lambda: ns_ts.step(Uts)),
-                cs.best_of_3(lambda: ns_ts.polish_step(Uts))))
+        **_steps(cs, ns_ts, Uts, cs.best_of_3(lambda: ns_ts.step(Uts)),
+                 cs.best_of_3(lambda: ns_ts.polish_step(Uts))))
+    return out
+
+
+def shell_solution(cs, dev):
+    """The 128^2 shell's StencilNewton solver, its warm step, solve and
+    solution."""
+    import torch
+    ns, _ = cs.build_solver(cs.NEL, dev)
+    U1, rn, _ = ns.step(torch.zeros(ns.spline.ndof, dtype=torch.float64,
+                                    device=dev))
+    float(rn)
+    step_s = cs.best_of_3(lambda: ns.step(U1))
+    t0 = time.perf_counter()
+    Usol, rel64, nsteps, _ = ns.solve(rtol=1e-10)
+    torch.cuda.synchronize()
+    return ns, U1, step_s, Usol, dict(step_ms=step_s * 1e3,
+                                      solve_s=time.perf_counter() - t0,
+                                      steps=nsteps, rel64=rel64)
+
+
+def k10_k3_paths(cs, dev):
+    """The paths through K3 and K10: each one's warm step times, its full
+    solve (steps, seconds) and the device's busy share of its steps."""
+    from tigar_tpu_torch.ops import cuda_ext
+    out = {}
+
+    # the shell (StencilNewton)
+    cuda_ext.reset_counts()
+    ns, U1, step_s, Usol, rec = shell_solution(cs, dev)
+    levels = cs.k3_levels("shell")
+    polish_s = cs.best_of_3(lambda: ns.polish_step(U1))
+    out["shell"] = dict(**rec, k3_by_grid=levels,
+                        **_steps(cs, ns, U1, step_s, polish_s))
+
+    # the two-patch shell, penalty and Nitsche couplings
+    t0 = time.perf_counter()
+    ns_tp, cpl, sizes = cs.build_two_patch(dev)
+    Utp, rel, _, _, times = cs.two_patch_main_path(
+        ns_tp, cpl, sizes, time.perf_counter() - t0)
+    out["two_patch_penalty"] = dict(
+        rel64=rel, **times, **_steps(cs, ns_tp, Utp,
+                                     cs.best_of_3(lambda: ns_tp.step(Utp)),
+                                     cs.best_of_3(
+                                         lambda: ns_tp.polish_step(Utp))))
+    t0 = time.perf_counter()
+    ns_nit, cpl_nit, _ = cs.build_two_patch(
+        dev, coupling="nitsche", splines=[ns_tp.spline, *ns_tp.mg_splines])
+    Unit, rel, _, _, times = cs.two_patch_nitsche_main_path(
+        ns_nit, cpl_nit, sizes, time.perf_counter() - t0)
+    out["two_patch_nitsche"] = dict(
+        rel64=rel, **times, **_steps(cs, ns_nit, Unit,
+                                     cs.best_of_3(lambda: ns_nit.step(Unit)),
+                                     cs.best_of_3(
+                                         lambda: ns_nit.polish_step(Unit))))
+    del ns_tp, ns_nit
+    out.update(sa_paths(cs, dev, ns, Usol))
     return out
 
 
@@ -291,7 +324,224 @@ def k10_k3(cs, dev, timed):
     return out
 
 
-WHAT = {"k12_k5": k12_k5, "shell": shell, "k10_k3": k10_k3}
+def launches_per_call(fn, reps=5):
+    """{kernel name: launches a call} of ``fn`` (torch.profiler,
+    device-side kernels), None where a count is not a whole number."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = e.key[:60]
+            out[k] = out.get(k, 0) + e.count / reps
+    return {k: (v if v == int(v) else None) for k, v in out.items()}
+
+
+def k11_records(cs, timed, sparse, new, label, levels, ops, n_coarse, g):
+    """K11 on one SA hierarchy (or the two-level operator) of a tree: each
+    level's (A, P, Pt) in the modes its cycle runs and in the plain
+    apply, with the one PyTorch call of the same function where there is
+    one (``chip_smoke.ELL_LIBRARY`` on the CSR matrix: ``@``, addmv) as
+    "csr"; ``ops`` the tree's EllOperators (None in a tree without
+    them)."""
+    import torch
+    out = {}
+    sizes = [int(lv[2].shape[0]) for lv in levels] + [int(n_coarse)]
+    use = {"A": ("apply", "jacobi", "residual", "jacobi0"),
+           "P": ("apply", "add"), "Pt": ("apply",)}
+    for l, lv in enumerate(levels):
+        arrays = {"A": (lv[0], lv[1], sizes[l]), "P": (lv[3], lv[4],
+                                                     sizes[l + 1]),
+                  "Pt": (lv[5], lv[6], sizes[l])}
+        om = lv[2]
+        for name, (cols, vals, ncols) in arrays.items():
+            if cols is None:
+                continue
+            n, K = cols.shape
+            nnz = int((vals != 0).sum())
+            x = torch.randn(ncols, generator=g).to(vals.device)
+            b = torch.randn(n, generator=g).to(vals.device)
+            op = None if ops is None else ops[l][("A", "P", "Pt").index(
+                name)]
+            if new and op is None:      # level 0 under the fine operator
+                op = sparse.EllOperator(cols, vals, ncols)
+            slots = int(op.card.starts[-1]) if new else n * K
+            Kl = int(op.card.width.max()) if new else K
+            for mode in use[name]:
+                if new:
+                    a = (None if mode == "jacobi0" else x, b,
+                         om if mode in ("jacobi", "jacobi0") else None, mode)
+                    fn = (lambda op=op, a=a: op(*a))
+                    r = timed(fn, 200, "ell_s", 1)
+                elif mode == "jacobi0":
+                    fn = (lambda c=cols, v=vals, b=b, om=om: sparse.ell_spmv(
+                        c, v, om * b, b, om, "jacobi"))
+                    r = timed(fn, 200)
+                elif mode == "add":
+                    fn = (lambda c=cols, v=vals, x=x, b=b:
+                          b + sparse.ell_spmv(c, v, x))
+                    r = timed(fn, 200)
+                else:
+                    fn = (lambda c=cols, v=vals, x=x, b=b, om=om, mode=mode:
+                          sparse.ell_spmv(c, v, x, b, om, mode))
+                    r = timed(fn, 200, "ell_s", 1)
+                per_col, per_row = cs.ELL_VECTORS[mode]
+                vec = (per_col * ncols + per_row * n) * 4
+                r.update(n=n, K=Kl, nnz=nnz, slots=slots,
+                         fill=nnz / max(slots, 1),
+                         bound_nnz_ms=cs.bound(nnz * 8 + vec, 2.0 * nnz,
+                                               torch.float32)[0],
+                         bound_layout_ms=cs.bound(slots * 8 + vec, 2.0 * nnz,
+                                                  torch.float32)[0])
+                lib = cs.ELL_LIBRARY.get(mode)
+                if lib is not None:     # CSR @, torch.addmv
+                    rr = torch.arange(n, device=x.device)[:, None]
+                    A = cs.csr_of(rr.expand_as(cols).reshape(-1),
+                                  cols.reshape(-1), vals.reshape(-1),
+                                  (n, ncols))
+                    r["csr"] = timed(lambda A=A, x=x, b=b, lib=lib:
+                                     lib(A, x, b), 200)
+                out[f"{label} {name} level {l} {mode}"] = r
+    return out
+
+
+def k11_part(cs, dev, timed, path):
+    """K11 on the SA hierarchy of one path (the 128^2 SANewton shell, the
+    star, or the two-level cycle of the 128^2 generic Poisson) and one
+    cycle of it: ms, busy device ms and launches by kernel."""
+    import numpy as np
+    import torch
+    from tigar_tpu_torch.ops import sparse
+    new = hasattr(sparse, "EllOperator")
+    g = torch.Generator().manual_seed(41)
+    if path == "two-level":
+        from tigar_tpu_torch.solvers.aggregation import TwoLevelSA
+        sp2 = cs.gp_spline(cs.GP_NEL2, dev)
+        sp2.set_solver_options(linear_solver="sa_cg", sa_levels=2)
+        pre, _ = sp2._sa_preconditioner(cs.gp_a, torch.zeros(
+            sp2.ndof, dtype=torch.float64, device=dev), None, True)
+        assert isinstance(pre, TwoLevelSA)
+        lv = (pre._ell_cols, pre._ell_vals, pre._om_dinv) + (None,) * 4
+        recs = k11_records(cs, timed, sparse, new, path, [lv],
+                           [(pre._ell_op, None, None)] if new else None,
+                           pre.n_coarse, g)
+        r = torch.randn(sp2.ndof, generator=g).to(dev)
+        cyc = lambda: pre.apply32(r)                        # noqa: E731
+        info = {}
+    else:
+        if path == "128^2":
+            ns, _ = cs.build_solver(cs.NEL, dev)
+            s, U = cs.sa_solver(ns.spline, ns.adjoint), cs.smooth_state(ns)
+        else:
+            from tigar_tpu_torch.demos import star_tspline_shell as demo
+            s = demo.build(cs.TS_NEL, dev)
+            U = s.mask64 * torch.as_tensor(np.random.default_rng(0).normal(
+                size=s.spline.ndof) * 1e-3, device=dev)
+        sa = s._ensure_sa(s._build(s.asm_b32, U.float()))
+        recs = k11_records(cs, timed, sparse, new, path, sa._levels,
+                           sa._ops if new else None, sa._coarse_inv.shape[0],
+                           g)
+        r = s.mask32 * torch.randn(s.spline.ndof, generator=g).to(dev)
+        cyc = lambda: sa(r)                                 # noqa: E731
+        info = {"levels": sa.level_sizes}
+    return {"k11": recs, "cycle": {path: dict(
+        **info, **timed(cyc, 50), launches=launches_per_call(cyc))}}
+
+
+def k16_part(cs, dev, timed, tree):
+    """K16 on the 24^3 drop-1 Poisson field and the 128^2 shell's fields
+    (f64, f32) beside J^T @ F and the byte bound, and the sumfac
+    residual's best of 3."""
+    import numpy as np
+    import torch
+    from tigar_tpu_torch.ops import sumfac_forms as sf
+    src = open(os.path.join(tree, "tigar_tpu_torch", "csrc",
+                            "sumfac_jets.cu")).read()
+    per_group = 2 if "sumfac_scatter_jets_gather" in src else 1
+    out = {"k16": {}, "sumfac_residual_ms": {}}
+    rng = np.random.default_rng(4)
+    shell_spline = cs.build_spline(cs.NEL, dev)
+    shell_asm = cs.sf_shell_assembler(shell_spline)
+    psp = cs.sf_poisson_spline(cs.SF_NEL3, dev)
+    pasm = sf.make_sumfac_assembler(psp)
+    for label, lay64 in ((f"{cs.SF_NEL3}^3 drop 1", pasm.layout),
+                         (f"{cs.NEL}^2 shell fields", shell_asm.layout)):
+        _, Jt64 = cs.jets_csr(lay64)
+        for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            lay = lay64 if dt == torch.float64 else lay64.cast(dt)
+            jp = sf.jets_plain(torch.zeros(lay.n, dtype=dt, device=dev), lay)
+            cot = tuple(None if x is None else torch.as_tensor(
+                rng.normal(size=tuple(x.shape)), device=dev).to(dt)
+                for x in jp)
+            fn = (lambda c=cot, l=lay: sf.scatter_jets_cuda(c, l))
+            r = timed(fn, 200, "sumfac_scatter_jets",
+                      per_group * len(lay.groups))
+            if per_group == 2:          # the two passes apart
+                for ps in ("local", "gather"):
+                    r[f"{ps}_device_ms"] = cs.device_ms(
+                        fn, 200, f"sumfac_scatter_jets_{ps}",
+                        len(lay.groups))[0]
+            r["rel_err"] = cs.rel_diff(fn(), sf.scatter_jets_plain(cot, lay))
+            Jt, flat = Jt64.to(dt), cs.jets_flat(cot)
+            r["csr"] = timed(lambda Jt=Jt, f=flat: Jt @ f, 200)
+            r["bound_ms"] = cs.bound(cs.sf_jets_bytes(lay, dt), 0.0, dt)[0]
+            out["k16"][f"{label} {tag}"] = r
+    U = torch.as_tensor(rng.normal(size=shell_spline.ndof) * 1e-4,
+                        device=dev)
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        s = shell_asm if dt == torch.float64 else shell_asm.to(dt)
+        out["sumfac_residual_ms"][f"{cs.NEL}^2 shell {tag}"] = \
+            cs.best_of_3(lambda s=s, u=U.to(dt): s.residual_vector(
+                cs.sf_shell_form, u)) * 1e3
+    Up = torch.as_tensor(rng.normal(size=psp.ndof), device=dev)
+    out["sumfac_residual_ms"][f"{cs.SF_NEL3}^3 poisson f64"] = \
+        cs.best_of_3(lambda: pasm.residual_vector(cs.sf_poisson_form,
+                                                  Up)) * 1e3
+    return out
+
+
+K11_K16_PARTS = ("k11 128^2", "k11 star", "k11 two-level", "k16")
+
+
+def k11_k16_part(cs, dev, timed, tree, part):
+    if part == "k16":
+        return k16_part(cs, dev, timed, tree)
+    return k11_part(cs, dev, timed, part.split(" ", 1)[1])
+
+
+def k11_k16(cs, dev, timed, tree):
+    """Each kernel part in a fresh process of its own (profiler sessions
+    late in a process drop launches), then the SA paths here."""
+    out = {"k11": {}, "cycle": {}}
+    for p in K11_K16_PARTS:
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--what",
+             "k11_k16_part", "--part", p, "--tree", tree, "--label", p],
+            capture_output=True, text=True)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        if run.returncode or not lines:
+            raise SystemExit(f"part {p} failed:\n{run.stdout[-3000:]}\n"
+                             f"{run.stderr[-3000:]}")
+        got = json.loads(lines[-1])
+        for k in ("k11", "cycle"):
+            out[k].update(got.pop(k, {}))
+        out.update({k: v for k, v in got.items()
+                    if k in ("k16", "sumfac_residual_ms")})
+    ns, _, _, Usol, _ = shell_solution(cs, dev)
+    out.update(sa_paths(cs, dev, ns, Usol))
+    return out
+
+
+WHAT = {"k12_k5": k12_k5, "shell": shell, "k10_k3": k10_k3,
+        "k11_k16": k11_k16, "k11_k16_part": k11_k16_part}
 
 
 def main():
@@ -300,6 +550,7 @@ def main():
     ap.add_argument("--tree", default=".")
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--part", default=None, choices=K11_K16_PARTS)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, HERE)
@@ -330,7 +581,9 @@ def main():
                else cs.device_ms(fn, reps, match, per_call)[0])
         return {"ms": cs.cuda_ms(fn, reps), "device_ms": dev}
 
-    out.update(WHAT[args.what](cs, dev, timed))
+    extra = ((tree,) if args.what == "k11_k16" else
+             (tree, args.part) if args.what == "k11_k16_part" else ())
+    out.update(WHAT[args.what](cs, dev, timed, *extra))
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

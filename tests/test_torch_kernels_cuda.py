@@ -13,7 +13,8 @@ the two-level SA cycle through K11, with the generic form path's
 refinement and sa_cg solves through them; K13/K14 on contact strips of
 36, 1,024 and 1,089 points, and the reef-knot demo's step at NEL=6
 through them; K15/K16 on the sum-factorized jets of the shell's fields
-and control net, a strided 3D field, a periodic field and an RT pair, and
+and control net, a strided 3D field, a periodic field, an RT pair, a 3D
+Hessian field of mixed degrees and a p=3 field of 40 elements a row, and
 the sumfac shell residual and tangent action through them; one refused
 call per binding check site, which must raise).  Every test skips
 without a CUDA device; run them on a GPU machine with
@@ -615,34 +616,94 @@ def _sa_hierarchy(cuda, fine=False):
     st = ns._build(ns.asm32, _state(ns.spline, amp=0.01).float())
     sa = ns._ensure_sa(st)
     if not fine:
+        from tigar_tpu_torch.solvers.aggregation import level_ops
         sa._fine = None
+        sa._ops = level_ops(sa._levels, sa._coarse_inv.shape[0])
     return ns, sa
 
 
-@pytest.mark.parametrize("mode", ["apply", "residual", "jacobi"])
+ELL_MODES = ["apply", "residual", "jacobi", "jacobi0", "add"]
+
+
+def _ell_case(op, om, mode, dtype, g, cuda):
+    """(x, b, om_dinv) of one K11 call in ``mode`` on the card."""
+    x, b = (torch.randn(k, generator=g, dtype=torch.float64).to(cuda, dtype)
+            for k in (op.ncols, op.n))
+    return ((None if mode == "jacobi0" else x), b,
+            om.to(dtype) if mode in ("jacobi", "jacobi0") else None)
+
+
+@pytest.mark.parametrize("mode", ELL_MODES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_ell_spmv_kernel(cuda, mode, dtype, tol):
+    """K11 on the sliced layouts of every level's A, P and Pt (the square
+    modes on A) against the carried arrays' plain version and the sliced
+    layout's, one launch a call, tallied by op."""
     from tigar_tpu_torch.ops import sparse
     _, sa = _sa_hierarchy(cuda)
     g = torch.Generator().manual_seed(3)
-    for lv in sa._levels:
-        for cols, vals in ((lv.A_cols, lv.A_vals), (lv.P_cols, lv.P_vals),
-                           (lv.Pt_cols, lv.Pt_vals)):
-            square = cols is lv.A_cols
-            if mode != "apply" and not square:
+    for ops, lv in zip(sa._ops, sa._levels):
+        for op in ops:
+            if mode in ("jacobi", "jacobi0") and op is not ops[0]:
                 continue
-            n = cols.shape[0]
-            ncol = n if square else int(cols.max()) + 1
-            x, b = (torch.randn(k, generator=g, dtype=torch.float64)
-                    .to(cuda, dtype) for k in (ncol, n))
-            args = (cols, vals.to(dtype), x, b, lv.om_dinv.to(dtype), mode)
+            if dtype == torch.float64:
+                op = sparse.EllOperator(op.cols, op.vals.double(), op.ncols,
+                                        op.key)
+            x, b, om = _ell_case(op, lv.om_dinv, mode, dtype, g, cuda)
             cuda_ext.reset_counts()
-            y_k = sparse.ell_spmv(*args)
-            y_t = sparse.ell_spmv_ref(*args)
+            y_k = op(x, b, om, mode)
+            y_t = sparse.ell_spmv_ref(op.cols, op.vals, x, b, om, mode)
+            y_s = sparse.sliced_ell_ref(op.card, x, b, om, mode)
             torch.cuda.synchronize()
             assert cuda_ext.counts()["ell_spmv"] == 1
-            assert y_k.shape == (n,) and _rel(y_k, y_t) <= tol
+            assert cuda_ext.counts_by("ell_spmv") == {(op.key, mode): 1}
+            assert y_k.shape == (op.n,) and _rel(y_k, y_t) <= tol
+            assert _rel(y_s, y_t) <= tol
+
+
+def _ell_arrays(n, ncols, K, g, cuda, ragged=False):
+    """Carried ELL arrays [n, K] with sorted distinct columns per row,
+    every row K long, or (``ragged``) rows of 0..K entries."""
+    cols = torch.argsort(torch.rand(n, ncols, generator=g), dim=1)[:, :K]
+    cols = torch.sort(cols, dim=1).values.to(torch.int32)
+    vals = torch.randn(n, K, generator=g, dtype=torch.float64)
+    if ragged:
+        keep = torch.arange(K)[None, :] < torch.randint(0, K + 1, (n, 1),
+                                                        generator=g)
+        cols = torch.where(keep, cols, 0).to(torch.int32)
+        vals = torch.where(keep, vals, 0.0)
+    return cols.to(cuda).contiguous(), vals.to(cuda).contiguous()
+
+
+@pytest.mark.parametrize("K", [1, 25, 81, 324, "ragged Pt"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_ell_kernel_widths(cuda, K, dtype, tol):
+    """K11 at the widths of the SA levels (1, 25, 81, 324 slots: 4, 4, 8
+    and 32 lanes a row) and on a ragged transpose-like operator (rows of
+    0-147 entries), in every mode (the square ones where it is square),
+    against both plain versions."""
+    from tigar_tpu_torch.ops import sparse
+    g = torch.Generator().manual_seed(13)
+    if K == "ragged Pt":
+        n, ncols, cols, vals = 301, 1200, *_ell_arrays(301, 1200, 147, g,
+                                                       cuda, ragged=True)
+    else:
+        n = ncols = 1000
+        cols, vals = _ell_arrays(n, ncols, K, g, cuda)
+    op = sparse.EllOperator(cols, vals.to(dtype), ncols)
+    assert int(op.card.width.max()) % 4 == 0
+    om = torch.rand(n, generator=g, dtype=torch.float64).to(cuda)
+    for mode in ELL_MODES:
+        if mode in ("jacobi", "jacobi0") and n != ncols:
+            continue
+        x, b, omd = _ell_case(op, om, mode, dtype, g, cuda)
+        y_k = op(x, b, omd, mode)
+        y_t = sparse.ell_spmv_ref(op.cols, op.vals, x, b, omd, mode)
+        y_s = sparse.sliced_ell_ref(op.card, x, b, omd, mode)
+        torch.cuda.synchronize()
+        assert _rel(y_k, y_t) <= tol and _rel(y_s, y_t) <= tol, mode
 
 
 def test_sa_cycle_runs_through_kernels(cuda):
@@ -653,7 +714,7 @@ def test_sa_cycle_runs_through_kernels(cuda):
     alone move the card's result 1.5e-5 from run to run), so the bound is
     1e-4; each kernel is held to 1e-5 on its own above."""
     from tigar_tpu_torch.solvers.aggregation import (MultilevelSA, SALevel,
-                                                     _mlsa_apply)
+                                                     _mlsa_apply, level_ops)
     from tigar_tpu_torch.solvers.newton_sa import ElemTangent
     ns, sa = _sa_hierarchy(cuda, fine=True)
     fop, fmask = sa._fine
@@ -667,11 +728,13 @@ def test_sa_cycle_runs_through_kernels(cuda):
     torch.cuda.synchronize()
     c = cuda_ext.counts()
     assert c["elem_tangent_apply"] > 0 and c["ell_spmv"] > 0, c
+    lv64 = [SALevel(*(t.double() if t.is_floating_point() else t
+                      for t in lv)) for lv in levels]
     z64 = _mlsa_apply(
-        [SALevel(*(t.double() if t.is_floating_point() else t for t in lv))
-         for lv in levels], sa._coarse_inv.cpu().double(),
+        lv64, sa._coarse_inv.cpu().double(),
         (ElemTangent(fine.conn, fine.E.double(), fine.ndof),
-         fmask.cpu().double()), r.cpu().double(), sa._n_smooth, 1)
+         fmask.cpu().double()), r.cpu().double(), sa._n_smooth, 1,
+        level_ops(lv64, sa._coarse_inv.shape[0], fine=True))
     err_card, err_cpu = _rel(z.cpu().double(), z64), _rel(cpu(r.cpu()), z64)
     assert err_card <= 1e-4 and err_cpu <= 1e-4, (err_card, err_cpu)
 
@@ -713,12 +776,17 @@ def test_sa_kernels_refuse_what_they_cannot_take(cuda):
                                                    dtype=torch.float64), x)
     cols = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
     vals = torch.zeros((4, 3), device=cuda)
-    with pytest.raises(ValueError, match="needs b"):
-        sparse.ell_spmv(cols, vals, torch.zeros(4, device=cuda),
-                        mode="residual")
+    op = sparse.EllOperator(cols, vals, 4)
+    with pytest.raises(RuntimeError, match="needs b"):
+        op(torch.zeros(4, device=cuda), mode="residual")
     with pytest.raises(ValueError, match="do not match"):
-        sparse.ell_spmv(cols, vals[:, :2].contiguous(),
-                        torch.zeros(4, device=cuda))
+        sparse.EllOperator(cols, vals[:, :2].contiguous(), 4)
+    with pytest.raises(ValueError, match="leave the"):
+        sparse.EllOperator(cols + 5, vals, 4)
+    with pytest.raises(RuntimeError, match="has shape"):
+        op(torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError, match="unknown ELL mode"):
+        op(torch.zeros(4, device=cuda), mode="sweep")
     spline = _build(8, cuda)
     asm = spline._assembler("dx")
     with pytest.raises(ValueError, match="me must be"):
@@ -1113,6 +1181,28 @@ def _jet_layout(case, device, dtype):
             uniform_knots(2, 0., 1., 4)]), 2)
         assert p.metas[0][0] == "gather"
         return JetLayout([JetGroup(p, 0, 1, p.ncp, 1, 0)], p.ncp)
+    if case == "3d-hessian":
+        p = plan(TensorBSplineBasis([2, 3, 1], [
+            uniform_knots(2, 0., 1., 3), uniform_knots(3, 0., 1., 2),
+            uniform_knots(1, 0., 1., 4)]), 2, npts=4)
+        return JetLayout([JetGroup(p, 0, 2, p.ncp, 1, 0)], 2 * p.ncp)
+    if case == "gather-repeat":
+        # a gather direction whose windows repeat coefficients: lists of
+        # up to 8 (element, slot) pairs, past K16's 4 a direction in
+        # registers
+        g = np.random.default_rng(2)
+        idx = torch.tensor([[0, 1, 0], [1, 0, 2], [0, 2, 1], [3, 0, 0],
+                            [4, 3, 0], [0, 4, 3]], device=device)
+        tabs = [torch.as_tensor(g.normal(size=s), device=device).to(dtype)
+                for s in ((6, 3, 3, 3), (4, 3, 3, 3))]
+        p = DevicePlan.from_tensors(tabs, [idx, None],
+                                    [("gather", 0, 1, 6, 3),
+                                     ("slide", 0, 1, 4, 3)], (5, 6), 2)
+        return JetLayout([JetGroup(p, 0, 1, p.ncp, 1, 0)], p.ncp)
+    if case == "p3-rows":
+        p = plan(TensorBSplineBasis([3, 3], [uniform_knots(3, 0., 1., 40)]
+                                    * 2), 2, npts=4)
+        return JetLayout([JetGroup(p, 0, 5, p.ncp, 1, 0)], 5 * p.ncp)
     u = np.linspace(0.0, 1.0, 5)
 
     def kv(deg):
@@ -1125,7 +1215,12 @@ def _jet_layout(case, device, dtype):
                      p0.ncp + p1.ncp)
 
 
-JET_CASES = ["shell", "bnet", "strided3d", "periodic", "rt"]
+# K16's layout classes: 2D / 3D, nders 1 / 2, pp 2-4 (mixed across
+# directions), slide at strides 1 and 2, gather (and gather windows that
+# repeat coefficients), one and several groups and columns, interleaved
+# columns (bnet), element rows longer than a block's run (p3-rows)
+JET_CASES = ["shell", "bnet", "strided3d", "periodic", "rt", "3d-hessian",
+             "p3-rows", "gather-repeat"]
 
 
 @pytest.mark.parametrize("case", JET_CASES)

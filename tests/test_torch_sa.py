@@ -12,6 +12,9 @@ polish_cg_iters=80, coarse_size=100):
     triangles);
   - MultilevelSA.from_coo on the identical BC'd coo operator: level sizes
     equal, ELL arrays and om_dinv 1e-12, coarse inverse 1e-10;
+  - kernel K11's sliced layout of those ELL arrays, through its plain
+    version, against the carried arrays' plain product (f64): 1e-14; the
+    fused "jacobi0" and "add" modes against their compositions: equal;
   - one V and one W cycle, linear and quadratic near-kernels, on the JAX
     hierarchy carried across (``convert.mlsa_from_numpy``), its f32 fine
     operator included: 1e-5 (float32 cycles, sums in another order);
@@ -157,6 +160,49 @@ def test_from_coo_matches_jax(jax_run, near_kernel):
             else:
                 assert rel(lt[k], lj[k]) <= 1e-12, k
     assert rel(at["coarse_inv"], aj["coarse_inv"]) <= 1e-10
+
+
+@pytest.fixture(scope="module")
+def port_sa(jax_run):
+    """The port's three-level hierarchy of the same coo operator (CPU)."""
+    args, field_of = _coo(jax_run)
+    return tagg.MultilevelSA.from_coo(*args, device="cpu", field_of=field_of,
+                                      coarse_size=50)
+
+
+@pytest.mark.parametrize("mode", ["apply", "residual", "jacobi", "jacobi0",
+                                  "add"])
+def test_sliced_ell_matches_carried_arrays(port_sa, mode):
+    """Kernel K11's sliced layout of every level's A, P and Pt (f64),
+    through its plain version, against the carried ELL arrays' plain
+    product: 1e-14 of the largest entry (one sum order, trailing zero
+    slots dropped); the fused modes' plain versions against their
+    compositions: equal."""
+    from tigar_tpu_torch.ops import sparse
+    g = torch.Generator().manual_seed(5)
+    for (A, P, Pt), lv in zip(port_sa._ops, port_sa._levels):
+        for op in (A, P, Pt):
+            if mode in ("jacobi", "jacobi0") and op is not A:
+                continue
+            vals = op.vals.double()
+            sl = sparse.sliced_ell(op.cols, vals, op.ncols)
+            assert int(sl.width.max()) % 4 == 0 and sl.fill()[0] == int(
+                (vals != 0).sum())
+            x, b = (torch.randn(k, generator=g, dtype=F64)
+                    for k in (op.ncols, op.n))
+            om = lv.om_dinv.double()
+            x = None if mode == "jacobi0" else x
+            want = sparse.ell_spmv_ref(op.cols, vals, x, b, om, mode)
+            assert rel(sparse.sliced_ell_ref(sl, x, b, om, mode),
+                       want) <= 1e-14
+            if mode == "jacobi0":
+                comp = sparse.ell_spmv_ref(op.cols, vals, om * b, b, om,
+                                           "jacobi")
+            elif mode == "add":
+                comp = b + sparse.ell_spmv_ref(op.cols, vals, x)
+            else:
+                continue
+            assert torch.equal(want, comp)
 
 
 @pytest.mark.parametrize("cycle", ["V", "W"])

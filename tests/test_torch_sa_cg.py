@@ -6,8 +6,10 @@ splines (CPU), and the entry points' default device.
 Tolerances: aggregate labels equal; TwoLevelSA.from_coo's arrays (dinv, P,
 Ac_inv, omega) 1e-12 relative (the same host numpy on the same coo
 input, cast to float32 by both); the plain two-level cycle on identical
-arrays 1e-5 (float32, scatter-adds in another order); sa_cg solutions
-1e-8 of the direct solve (tests/test_aggregation.py's bound).
+arrays 1e-5 (float32, scatter-adds in another order); its ELL form with
+the first sweep fused equal to the unfused one, and kernel K11's sliced
+layout of the ELL operator 1e-14 of the carried arrays (f64); sa_cg
+solutions 1e-8 of the direct solve (tests/test_aggregation.py's bound).
 """
 
 import numpy as np
@@ -77,10 +79,44 @@ def test_twolevel_plain_cycle_matches_jax(twolevel):
     yj = jpre(jnp.asarray(r))
     rt = torch.as_tensor(r)
     assert rel(tpre(rt), yj) <= 1e-5
-    ell = tagg.twolevel_apply_ell(tpre._ell_cols, tpre._ell_vals,
-                                  tpre._om_dinv, tpre._P, tpre._Ac_inv,
-                                  rt.float(), tpre._n_smooth)
+    ell = tagg.twolevel_apply_ell(tpre._ell_op, tpre._om_dinv, tpre._P,
+                                  tpre._Ac_inv, rt.float(), tpre._n_smooth)
     assert rel(ell, yj) <= 1e-5
+
+
+@pytest.mark.parametrize("what", ["fused", "sliced"])
+def test_twolevel_ell_cycle_pieces(twolevel, what):
+    """The two-level cycle's ELL form with the first sweep fused
+    ("jacobi0") against the unfused composition (x = om_dinv r, then the
+    Jacobi sweeps): equal on the CPU; kernel K11's sliced layout of its
+    ELL operator (f64), through its plain version, against the carried
+    arrays in every square mode: 1e-14."""
+    from tigar_tpu_torch.ops import sparse
+    _, tpre = twolevel
+    cols, vals, om = tpre._ell_cols, tpre._ell_vals, tpre._om_dinv
+    r = torch.as_tensor(np.random.default_rng(9).normal(size=tpre._ndof),
+                        dtype=torch.float32)
+    if what == "fused":
+        x = om * r
+        for _ in range(tpre._n_smooth - 1):
+            x = sparse.ell_spmv_ref(cols, vals, x, r, om, "jacobi")
+        d = sparse.ell_spmv_ref(cols, vals, x, r, mode="residual")
+        x = x + tpre._P @ (tpre._Ac_inv @ (d @ tpre._P))
+        for _ in range(tpre._n_smooth):
+            x = sparse.ell_spmv_ref(cols, vals, x, r, om, "jacobi")
+        assert tpre._n_smooth >= 2
+        assert torch.equal(tagg.twolevel_apply_ell(
+            sparse.EllOperator(cols, vals, tpre._ndof), om, tpre._P,
+            tpre._Ac_inv, r, tpre._n_smooth), x)
+        return
+    v64, om64, r64 = vals.double(), om.double(), r.double()
+    sl = sparse.sliced_ell(cols, v64, tpre._ndof)
+    x = torch.as_tensor(np.random.default_rng(10).normal(size=tpre._ndof))
+    for mode in sparse.ELL_MODES:
+        xm = None if mode == "jacobi0" else x
+        assert rel(sparse.sliced_ell_ref(sl, xm, r64, om64, mode),
+                   sparse.ell_spmv_ref(cols, v64, xm, r64, om64,
+                                       mode)) <= 1e-14
 
 
 @pytest.mark.parametrize("levels", [2, 4])

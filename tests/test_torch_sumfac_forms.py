@@ -262,6 +262,60 @@ def test_field_jets_plain_matches_jax(mode):
             assert rel(y, x) <= 1e-13 and rel(z[:, c], x) <= 1e-13
 
 
+def _k16_cover(plan, d):
+    """{(coefficient, element, slot)} that kernel K16's gather pass visits
+    in direction d, by its rule (csrc/sumfac_jets.cu ``cover``): a slide
+    window's candidates solved from start / stride, a gather direction's
+    inverse lists; a Counter, so a pair visited twice shows."""
+    from collections import Counter
+    _, _, inv, starts, strides = plan.kernel_args()
+    _, _, _, nel, pp = plan.metas[d]
+    ncp = plan.ncp_d[d]
+    out = Counter()
+    for i in range(ncp):
+        if inv[d].numel():
+            ptr = inv[d][:ncp + 1].tolist()
+            for ent in inv[d][ncp + 1 + ptr[i]:ncp + 1 + ptr[i + 1]].tolist():
+                out[(i, ent // pp, ent % pp)] += 1
+            continue
+        for k in range(pp):
+            n = i - starts[d] - k
+            if n >= 0 and n % strides[d] == 0 and n // strides[d] < nel:
+                out[(i, n // strides[d], k)] += 1
+    return out
+
+
+@pytest.mark.parametrize("case", ["slide", "strided", "gather", "3d",
+                                  "reduced"])
+def test_k16_cover_visits_each_pair_once(built, case):
+    """K16's gather pass visits each (coefficient, covering element,
+    window slot) pair of every direction exactly once: its rule against
+    the forward windows of the plan (start0 + stride e + a, or the gather
+    windows)."""
+    from collections import Counter
+    if case == "strided":
+        b = TBasis([2, 3], [t_knots(2, 0., 1., 4, continuity_drop=1),
+                            t_knots(3, 0., 1., 3, continuity_drop=2)])
+        plans = [tsf.DevicePlan(tsf.FieldPlan(b, 3, 1), "cpu",
+                                torch.float64)]
+        assert [m[2] for m in plans[0].metas] == [2, 3]
+    else:
+        key = {"slide": "nurbs", "gather": "periodic"}.get(case, case)
+        plans = [g.plan for g in built[key]["tasm"].layout.groups]
+    modes = set()
+    for plan in plans:
+        for d, (mode, s0, m, nel, pp) in enumerate(plan.metas):
+            modes.add(mode)
+            want = Counter()
+            for e in range(nel):
+                for a in range(pp):
+                    i = (int(plan.idxs[d][e, a]) if mode == "gather"
+                         else s0 + m * e + a)
+                    want[(i, e, a)] += 1
+            assert _k16_cover(plan, d) == want
+    assert modes == ({"gather", "slide"} if case == "gather" else {"slide"})
+
+
 def test_sumfac_geometry_matches_jax(built):
     """The geometry ctx leaves and weights on the distorted NURBS patch
     (rational, nders 2) against JAX's sumfac_geometry: 1e-13."""

@@ -269,41 +269,58 @@ torch::Tensor elem_tangent_diagonal(torch::Tensor conn, torch::Tensor E,
   return d;
 }
 
-torch::Tensor ell_spmv(torch::Tensor cols, torch::Tensor vals,
-                       torch::Tensor x, std::optional<torch::Tensor> b,
+// K11 over the sliced layout of ops/sparse.sliced_ell (tiles, starts, cols,
+// vals: the level's constants, checked in full where the level reaches the
+// card); the vectors are checked here on every call
+torch::Tensor ell_spmv(torch::Tensor tiles, torch::Tensor starts,
+                       torch::Tensor cols, torch::Tensor vals, int64_t n,
+                       int64_t ncols, std::optional<torch::Tensor> x,
+                       std::optional<torch::Tensor> b,
                        std::optional<torch::Tensor> om_dinv, int64_t mode) {
   const auto dt = vals.scalar_type();
   check_float(dt);
-  TORCH_CHECK(cols.dim() == 2 && x.dim() == 1, "cols [n, K], x a vector");
-  const int64_t n = cols.size(0), K = cols.size(1);
-  TORCH_CHECK(K >= 1 && n * K < (int64_t(1) << 40), "bad ELL shape");
-  TORCH_CHECK(n < (int64_t(1) << 31) && x.size(0) < (int64_t(1) << 31),
-              "too many rows");
-  check(cols, "cols", torch::kInt, {n, K});
-  check(vals, "vals", dt, {n, K});
-  check(x, "x", dt, {x.size(0)});
-  TORCH_CHECK(mode >= 0 && mode <= 2, "mode must be 0, 1 or 2");
+  TORCH_CHECK(mode >= 0 && mode <= 4, "mode must be 0 to 4, got ", mode);
+  TORCH_CHECK(n >= 0 && n < (int64_t(1) << 31) && ncols >= 0 &&
+                  ncols < (int64_t(1) << 31),
+              "bad operator size ", n, " x ", ncols);
+  TORCH_CHECK(tiles.dim() == 2, "tiles must be [ntiles, 3]");
+  const int64_t nt = tiles.size(0);
+  TORCH_CHECK(nt <= n, "more tiles (", nt, ") than rows (", n, ")");
+  check(tiles, "tiles", torch::kInt, {nt, 3});
+  check(starts, "starts", torch::kLong, {nt + 1});
+  TORCH_CHECK(cols.dim() == 1, "cols must be the sliced layout's vector");
+  check(cols, "cols", torch::kInt, {cols.size(0)});
+  check(vals, "vals", dt, {cols.size(0)});
+  TORCH_CHECK((mode != 2 && mode != 3) || ncols == n, "mode ", mode,
+              " needs a square operator");
+  TORCH_CHECK(mode == 3 ? !x : bool(x), "mode ", mode,
+              mode == 3 ? " takes no x" : " needs x");
   TORCH_CHECK(mode == 0 || b, "mode ", mode, " needs b");
-  TORCH_CHECK(mode != 2 || (om_dinv && x.size(0) == n),
-              "mode 2 needs om_dinv and a square operator");
+  TORCH_CHECK((mode != 2 && mode != 3) || om_dinv, "mode ", mode,
+              " needs om_dinv");
+  if (x) check(*x, "x", dt, {ncols});
   if (b) check(*b, "b", dt, {n});
   if (om_dinv) check(*om_dinv, "om_dinv", dt, {n});
-  const c10::cuda::CUDAGuard guard(x.device());
-  auto y = torch::empty({n}, x.options());
+  const c10::cuda::CUDAGuard guard(vals.device());
+  auto y = torch::empty({n}, vals.options());
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  const auto* s =
+      reinterpret_cast<const long long*>(starts.data_ptr<int64_t>());
   cudaError_t err;
   if (dt == torch::kFloat) {
     using T = float;
     err = tigar::ell_spmv_launch<T>(
-        n, K, cols.data_ptr<int>(), ptr<T>(vals), ptr<T>(x),
-        b ? ptr<T>(*b) : nullptr, om_dinv ? ptr<T>(*om_dinv) : nullptr,
-        (int)mode, y.data_ptr<T>(), stream);
+        (int)n, (int)nt, tiles.data_ptr<int>(), s, cols.data_ptr<int>(),
+        ptr<T>(vals), x ? ptr<T>(*x) : nullptr, b ? ptr<T>(*b) : nullptr,
+        om_dinv ? ptr<T>(*om_dinv) : nullptr, (int)mode, y.data_ptr<T>(),
+        stream);
   } else {
     using T = double;
     err = tigar::ell_spmv_launch<T>(
-        n, K, cols.data_ptr<int>(), ptr<T>(vals), ptr<T>(x),
-        b ? ptr<T>(*b) : nullptr, om_dinv ? ptr<T>(*om_dinv) : nullptr,
-        (int)mode, y.data_ptr<T>(), stream);
+        (int)n, (int)nt, tiles.data_ptr<int>(), s, cols.data_ptr<int>(),
+        ptr<T>(vals), x ? ptr<T>(*x) : nullptr, b ? ptr<T>(*b) : nullptr,
+        om_dinv ? ptr<T>(*om_dinv) : nullptr, (int)mode, y.data_ptr<T>(),
+        stream);
   }
   check_launch(err, "ell_spmv");
   return y;
@@ -934,9 +951,11 @@ void sumfac_scatter_jets(torch::Tensor cval, torch::Tensor cg,
     check(cg, "cg", dt, {a.npts, M, a.dim});
     TORCH_CHECK(nders < 2 || ch, "nders 2 needs ch");
     if (nders >= 2) check(*ch, "ch", dt, {a.npts, M, a.dim, a.dim});
+    auto local = torch::empty({tigar::sumfac_scatter_local_size(a)},
+                              out.options());
     err = tigar::sumfac_scatter_jets_launch<T>(
         a, ptr<T>(cval), ptr<T>(cg), nders >= 2 ? ptr<T>(*ch) : nullptr,
-        out.data_ptr<T>(), stream);
+        local.data_ptr<T>(), out.data_ptr<T>(), stream);
   } else {
     using T = double;
     auto a = jets_plan<T>(tabs, inv, true, starts, strides, ncp, nders, dt);
@@ -946,9 +965,11 @@ void sumfac_scatter_jets(torch::Tensor cval, torch::Tensor cg,
     check(cg, "cg", dt, {a.npts, M, a.dim});
     TORCH_CHECK(nders < 2 || ch, "nders 2 needs ch");
     if (nders >= 2) check(*ch, "ch", dt, {a.npts, M, a.dim, a.dim});
+    auto local = torch::empty({tigar::sumfac_scatter_local_size(a)},
+                              out.options());
     err = tigar::sumfac_scatter_jets_launch<T>(
         a, ptr<T>(cval), ptr<T>(cg), nders >= 2 ? ptr<T>(*ch) : nullptr,
-        out.data_ptr<T>(), stream);
+        local.data_ptr<T>(), out.data_ptr<T>(), stream);
   }
   check_launch(err, "sumfac_scatter_jets");
 }
@@ -986,7 +1007,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K10: element-batch tangent apply, BC-masked");
   m.def("elem_tangent_diagonal", &elem_tangent_diagonal,
         "K10: element-batch tangent diagonal");
-  m.def("ell_spmv", &ell_spmv, "K11: ELL product / residual / Jacobi");
+  m.def("ell_spmv", &ell_spmv,
+        "K11: sliced ELL product / residual / Jacobi / add");
   m.def("laplace_apply", &laplace_apply,
         "K12: f32 scalar stiffness apply over explicit connectivity");
   m.attr("LAPLACE_WINDOW") = tigar::LAPLACE_WINDOW;

@@ -202,12 +202,22 @@ cudaError_t elem_tangent_diagonal_launch(int nel, int nloc, const int* conn,
                                          const T* E, T* d,
                                          cudaStream_t stream);
 
-// K11: ELL product over cols/vals [n][K].  mode 0: y = A x; 1: y = b - A x;
-// 2: y = x + om_dinv (b - A x).
+// K11: sliced ELL product over n rows in ntiles tiles: tile t = tiles[t]
+// = (row0, width, lanes) covers rows row0 .. row0 + ELL_THREADS / lanes - 1
+// (to n), lanes in {4, 8, ..., 256} a row, and holds their slots row-major at
+// cols/vals[starts[t] + r width + k], width a multiple of 4 (16-byte
+// aligned chunks of cols).  mode 0: y = A x; 1: y = b - A x;
+// 2: y = x + om_dinv (b - A x); 3: the same at x = x0 = om_dinv b (x
+// unused); 4: y = b + A x.  ops/sparse.sliced_ell builds the tiles for
+// blocks of ELL_THREADS threads.
+constexpr int ELL_THREADS = 256;
+
 template <typename T>
-cudaError_t ell_spmv_launch(int n, int K, const int* cols, const T* vals,
-                            const T* x, const T* b, const T* om_dinv,
-                            int mode, T* y, cudaStream_t stream);
+cudaError_t ell_spmv_launch(int n, int ntiles, const int* tiles,
+                            const long long* starts, const int* cols,
+                            const T* vals, const T* x, const T* b,
+                            const T* om_dinv, int mode, T* y,
+                            cudaStream_t stream);
 
 // K12: f32 scalar stiffness apply r = mask A (mask W) + (1 - mask) W over
 // connT [nen][nel] (nen in {4, 8, 9, 16, 27, 64}) with the element matrices'
@@ -264,11 +274,21 @@ cudaError_t sumfac_jets_launch(const SumfacJetsArgs<T>& a, const T* W,
 
 // K16: the transpose: out[base + c col_stride + i cp_stride] = the jet
 // cotangents cval, cg, ch (layouts of K15) of column col0 + c pulled back
-// to coefficient i; every coefficient of the columns written once.
+// to coefficient i; every coefficient of the columns written once.  Two
+// passes through the scratch ``local`` of sumfac_scatter_local_size(a)
+// entries: each element's contributions to its pp^dim window slots, then
+// each coefficient's sum of the slots that cover it.
+template <typename T>
+inline long long sumfac_scatter_local_size(const SumfacJetsArgs<T>& a) {
+  long long n = (long long)a.ncols;
+  for (int d = 0; d < a.dim; ++d) n *= (long long)a.pp[d] * a.nel[d];
+  return n;
+}
+
 template <typename T>
 cudaError_t sumfac_scatter_jets_launch(const SumfacJetsArgs<T>& a,
                                        const T* cval, const T* cg,
-                                       const T* ch, T* out,
+                                       const T* ch, T* local, T* out,
                                        cudaStream_t stream);
 
 }  // namespace tigar

@@ -61,6 +61,19 @@ def _calls():
                 z(nq, 3, 9, 2, 2, 2), z(nq, 3, 2), z(nq, 3, 2, 2),
                 z(nq, 3, 2, 2, 2), z(nq, 2, 3), z(nq, 2)]
 
+    def ell(mode=0, n=4, ncols=4, tiles=None, starts=None, cols=None,
+            vals=None, x=True, b=True, om=True):
+        """K11 on one tile of 4 rows, 4 slots; every argument valid but
+        the one given"""
+        tiles = i32(1, 3) if tiles is None else tiles
+        starts = z(2, dt=torch.int64) if starts is None else starts
+        cols = i32(4) if cols is None else cols
+        vals = z(4) if vals is None else vals
+        x = z(ncols) if x is True else x
+        return lambda e: e.ell_spmv(tiles, starts, cols, vals, n, ncols, x,
+                                    z(n) if b else None,
+                                    z(n) if om else None, mode)
+
     def jets_args(W, T=None):           # K15 on a 4x4 p=1 grid, nq 2
         T = T or [z(4, 2, 3, 2), z(4, 2, 3, 2)]
         return (W, T, [i32(0), i32(0)], [0, 0], [1, 1], [5, 5], 2, 0, 1, 25,
@@ -93,7 +106,20 @@ def _calls():
             i32(1, 1), z(2, 2, 2), 1),
         "elem_tangent_diagonal/int": lambda e: e.elem_tangent_diagonal(
             i32(1, 1), z(1, 1, 1), -1),
-        "ell_spmv": lambda e: e.ell_spmv(i32(1, 1), bad, bad, None, None, 0),
+        "ell_spmv": ell(vals=bad),
+        "ell_spmv/mode": ell(mode=5),
+        "ell_spmv/size": ell(n=-1),
+        "ell_spmv/starts": ell(starts=z(3, dt=torch.int64)),
+        "ell_spmv/tiles": ell(tiles=z(1, 3, dt=torch.int64)),
+        "ell_spmv/tile count": ell(tiles=i32(5, 3)),
+        "ell_spmv/cols": ell(cols=i32(2, 2)),
+        "ell_spmv/vals": ell(vals=z(5)),
+        "ell_spmv/square": ell(mode=2, ncols=5),
+        "ell_spmv/x": ell(x=None),
+        "ell_spmv/x0": ell(mode=3),
+        "ell_spmv/b": ell(mode=1, b=None),
+        "ell_spmv/om_dinv": ell(mode=2, om=None),
+        "ell_spmv/x shape": ell(x=z(3)),
         "laplace_apply": lambda e: e.laplace_apply(
             z(1, 1), i32(1, 1), z(1), z(1)),
         "laplace_apply/Ke": lambda e: e.laplace_apply(

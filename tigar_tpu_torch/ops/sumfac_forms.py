@@ -387,8 +387,12 @@ def jets_cuda(W, layout):
 
 
 def scatter_jets_cuda(cot, layout):
-    """Kernel K16: one launch per group; every coefficient of the layout's
-    columns written once (the rest of the vector stays zero)."""
+    """Kernel K16: one call per group, two launches (each element's
+    window slots, its cotangents read straight from device memory and
+    contracted a direction at a time in registers, then each
+    coefficient's sum of the slots that cover it); every coefficient of
+    the layout's columns written once (the rest of the vector stays
+    zero)."""
     val, g, h = cot
     dtype = val.dtype
     _check_layout(layout, dtype)

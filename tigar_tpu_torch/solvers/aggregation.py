@@ -7,10 +7,10 @@ tigar_tpu/solvers/aggregation.py: ``grid_aggregates``,
 aggregates: weighted-Jacobi sweeps of the BC'd operator, a dense smoothed
 prolongation P [ndof, m] and a dense coarse inverse, all built on the host
 exactly as the JAX package builds them.  On the card its sweeps run
-through kernel K11 on an ELL copy of the operator (``ell_spmv`` in its
-Jacobi and residual modes); the dense products stay ``torch.matmul``.  On
-the CPU it runs the JAX package's coo scatter SpMV (``twolevel_apply_ref``,
-the plain version).
+through kernel K11 on an ELL copy of the operator (an ``EllOperator`` in
+its Jacobi, first-sweep and residual modes); the dense products stay
+``torch.matmul``.  On the CPU it runs the JAX package's coo scatter SpMV
+(``twolevel_apply_ref``, the plain version).
 
 The hierarchy is built on the host (numpy/scipy), as the JAX package does:
 geometric grid aggregation of the DoF positions (field-pure), near-kernel
@@ -18,8 +18,10 @@ tentative prolongations by per-aggregate QR, one weighted-Jacobi smoothing
 pass of the prolongation normalised by lam_max(D^-1 A), Galerkin coarse
 operators, recursively, down to a dense coarsest inverse.  Each level's
 operator, prolongation and its transpose go to the device in padded-row
-(ELL) form; the V/W-cycle applies them through kernel K11
-(ops/sparse.ell_spmv), with the weighted-Jacobi sweeps fused into it.  The
+(ELL) form, and where they reach the card each gets kernel K11's sliced
+layout beside them (ops/sparse.EllOperator); the V/W-cycle applies them
+through K11 with the weighted-Jacobi sweeps, the first sweep's
+x0 = om_dinv b and the coarse correction's addition fused into it.  The
 fine level may instead apply a BC'd fine operator (an f32
 newton_sa.ElemTangent: kernel K10).  The coarsest dense product stays
 ``torch.matmul``, as the JAX package leaves it to XLA.  The cycle runs in
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops.sparse import ell_spmv
+from ..ops.sparse import EllOperator
 
 F32 = torch.float32
 
@@ -87,18 +89,28 @@ def twolevel_apply_ref(rows, cols, vals, om_dinv, P, Ac_inv, r, n_smooth):
     return x
 
 
-def twolevel_apply_ell(cols, vals, om_dinv, P, Ac_inv, r, n_smooth):
-    """The two-level cycle with the operator in ELL form through
-    ``ell_spmv`` (kernel K11 on the card): the fused Jacobi sweep and the
-    residual mode; the sweep from x = 0 is om_dinv r (no product)."""
-    x = om_dinv * r
-    for _ in range(n_smooth - 1):
-        x = ell_spmv(cols, vals, x, r, om_dinv, "jacobi")
-    d = ell_spmv(cols, vals, x, r, mode="residual")
+def twolevel_apply_ell(A, om_dinv, P, Ac_inv, r, n_smooth):
+    """The two-level cycle with the operator in ELL form (``A``, an
+    ``EllOperator``: kernel K11 on the card): the first sweep from x = 0
+    with x0 = om_dinv r formed inside it ("jacobi0"), the fused Jacobi
+    sweeps and the residual."""
+    x, done = _first_sweep(A, om_dinv, r, n_smooth)
+    for _ in range(n_smooth - done):
+        x = A(x, r, om_dinv, "jacobi")
+    d = A(x, r, mode="residual")
     x = x + P @ (Ac_inv @ (d @ P))
     for _ in range(n_smooth):
-        x = ell_spmv(cols, vals, x, r, om_dinv, "jacobi")
+        x = A(x, r, om_dinv, "jacobi")
     return x
+
+
+def _first_sweep(A, om_dinv, b, n_smooth):
+    """(x, sweeps done): the pre-smoothing's start from x = 0, x0 =
+    om_dinv b, and with two or more sweeps its first sweep, fused into one
+    K11 launch ("jacobi0")."""
+    if n_smooth >= 2:
+        return A(None, b, om_dinv, "jacobi0"), 2
+    return om_dinv * b, 1
 
 
 class TwoLevelSA:
@@ -106,7 +118,8 @@ class TwoLevelSA:
     docstring).  Build with ``from_coo`` / ``from_spline``; callable as
     M(r) inside any Krylov loop (float32 inside, casts at the borders).
     The coo operator (``_rows``, ``_cols``, ``_vals``) serves the plain
-    cycle, its ELL copy (``_ell_cols``, ``_ell_vals``) the card's."""
+    cycle, its ELL copy (``_ell_cols``, ``_ell_vals``, and ``_ell_op``
+    with K11's layout) the card's."""
 
     def __init__(self, rows, cols, vals, dinv, P, Ac_inv, omega, n_smooth,
                  ndof):
@@ -131,6 +144,8 @@ class TwoLevelSA:
         self._ell_cols = torch.as_tensor(e_cols, device=vals.device)
         self._ell_vals = torch.as_tensor(e_vals, dtype=F32,
                                          device=vals.device)
+        self._ell_op = EllOperator(self._ell_cols, self._ell_vals,
+                                   self._ndof, key="twolevel A")
 
     @property
     def n_coarse(self):
@@ -140,9 +155,8 @@ class TwoLevelSA:
         """The cycle on a float32 residual: K11 on the card, the coo plain
         version on the CPU."""
         if r.is_cuda:
-            return twolevel_apply_ell(self._ell_cols, self._ell_vals,
-                                      self._om_dinv, self._P, self._Ac_inv,
-                                      r, self._n_smooth)
+            return twolevel_apply_ell(self._ell_op, self._om_dinv, self._P,
+                                      self._Ac_inv, r, self._n_smooth)
         return self.apply32_ref(r)
 
     def apply32_ref(self, r):
@@ -358,11 +372,28 @@ class SALevel(NamedTuple):
     Pt_vals: torch.Tensor
 
 
-def _mlsa_apply(levels, cinv, fine, r, ns, gamma):
+def level_ops(levels, n_coarse, fine=False):
+    """Per level (A, P, Pt) as ``EllOperator``s (K11's sliced layout, built
+    and checked once, where the arrays lie on the card), tallied apart by
+    op and level; ``n_coarse`` the size below the last level.  With
+    ``fine`` a BC'd fine operator applies level 0, whose A is then None."""
+    sizes = [int(lv.om_dinv.shape[0]) for lv in levels] + [int(n_coarse)]
+    return tuple(
+        (None if fine and l == 0 else
+         EllOperator(lv.A_cols, lv.A_vals, sizes[l], key=f"A{l}"),
+         EllOperator(lv.P_cols, lv.P_vals, sizes[l + 1], key=f"P{l}"),
+         EllOperator(lv.Pt_cols, lv.Pt_vals, sizes[l], key=f"Pt{l}"))
+        for l, lv in enumerate(levels))
+
+
+def _mlsa_apply(levels, cinv, fine, r, ns, gamma, ops):
     """One V (gamma 1) or W (gamma 2) cycle from a zero guess: n_smooth
     weighted-Jacobi sweeps before and after each coarse correction, the
     coarsest level by its dense inverse.  ``fine`` = (op, mask) replaces
-    the level-0 ELL operator by the BC'd action of ``op``."""
+    the level-0 ELL operator by the BC'd action of ``op``; ``ops`` are the
+    levels' ``level_ops``.  Below a BC'd fine operator the first sweep
+    from x = 0 and the coarse correction's addition run inside K11
+    ("jacobi0", "add")."""
     nlev = len(levels)
 
     def sweep(l, x, b):
@@ -370,27 +401,30 @@ def _mlsa_apply(levels, cinv, fine, r, ns, gamma):
         if l == 0 and fine is not None:
             fop, fmask = fine
             return x + lv.om_dinv * (b - fop.apply(x, mask=fmask))
-        return ell_spmv(lv.A_cols, lv.A_vals, x, b, lv.om_dinv, "jacobi")
+        return ops[l][0](x, b, lv.om_dinv, "jacobi")
 
     def residual(l, x, b):
-        lv = levels[l]
         if l == 0 and fine is not None:
             fop, fmask = fine
             return b - fop.apply(x, mask=fmask)
-        return ell_spmv(lv.A_cols, lv.A_vals, x, b, mode="residual")
+        return ops[l][0](x, b, mode="residual")
 
     def cycle(l, b):
         if l == nlev:
             return torch.matmul(cinv, b)
         lv = levels[l]
-        x = lv.om_dinv * b
-        for _ in range(ns - 1):
+        A, P, Pt = ops[l]
+        if l == 0 and fine is not None:
+            x, done = lv.om_dinv * b, 1
+        else:
+            x, done = _first_sweep(A, lv.om_dinv, b, ns)
+        for _ in range(ns - done):
             x = sweep(l, x, b)
         # coarse-grid correction, gamma visits below the top (the
         # coarsest dense solve is exact, so one visit suffices there)
         for _ in range(gamma if l + 1 < nlev else 1):
-            dc = ell_spmv(lv.Pt_cols, lv.Pt_vals, residual(l, x, b))
-            x = x + ell_spmv(lv.P_cols, lv.P_vals, cycle(l + 1, dc))
+            dc = Pt(residual(l, x, b))
+            x = P(cycle(l + 1, dc), x, mode="add")
         for _ in range(ns):
             x = sweep(l, x, b)
         return x
@@ -406,6 +440,8 @@ class MultilevelSA:
     def __init__(self, levels, coarse_inv, ndof, n_smooth, cycle="V",
                  fine_op=None, fine_mask=None):
         self._levels = tuple(SALevel(*lv) for lv in levels)
+        self._ops = level_ops(self._levels, coarse_inv.shape[0],
+                              fine=fine_op is not None)
         self._coarse_inv = coarse_inv
         self._ndof = int(ndof)
         self._n_smooth = int(n_smooth)
@@ -426,7 +462,7 @@ class MultilevelSA:
     def __call__(self, r):
         gamma = 2 if self._cycle == "W" else 1
         out = _mlsa_apply(self._levels, self._coarse_inv, self._fine,
-                          r.to(F32), self._n_smooth, gamma)
+                          r.to(F32), self._n_smooth, gamma, self._ops)
         return out.to(r.dtype)
 
     @classmethod
