@@ -33,15 +33,17 @@ Phases, each fatal on failure (nothing is caught):
      5), and its bound (bytes over 3.35 TB/s or operations over the peak
      rate of the type, the larger); K3 on every grid the V-cycle smooths
      (130^2, 66^2, 34^2, 18^2), every mode, f32 and f64, timed in f32
-     and in the f64 fine apply; K4 also at a small periodic 3D and a
-     small 2D p=3 case; the library yardsticks of K3's f32 apply (every
+     and in the f64 fine apply; K4 also on each coarser grid of the
+     Poisson V-cycle (48^3 ... 6^3, f32) and at a small periodic 3D and
+     a small 2D p=3 case; the library yardsticks of K3's f32 apply (every
      level) and K4 (f32 and f64, 96^3): the same BC'd operator as one
      torch.sparse CSR matrix, CUDA events of the call alone and, later,
      its profiler device time (recorded only where sessions of 10 and of
      all the timed calls record the same whole number of events a call);
   3. the shell main path: one production step after a warm-up (best of
      3), then the full solve to rtol=1e-10 with every launch count reset
-     just before it and read just after (K3's also by grid);
+     just before it and read just after (K3's also by grid; K2's by
+     type and point count, and K4's by grid and type, on every path);
   4. the floor certificate: the final f64 residual against the CPU twin of
      the residual kernel on the same state (rel64 <= 3 cpu_rel,
      rel64 <= 1e-8, |dU|/|U| <= 1e-10; or rel64 <= 1e-10);
@@ -502,6 +504,11 @@ def shell_certificate(ns, Usol, rel64, dU_rel, label="shell"):
         raise SystemExit(f"{label} floor certificate FAILED")
 
 
+# K2's stencil mode, operations a point: the 18x18 pointwise Jacobian with
+# each of 27 local functions in 6 jet slots, and E's symmetric half
+K2_STENCIL_OPS = 2.0 * (18 * 27 * 6 + 27 * 28 // 2 * 6)
+
+
 def kernel_phases(ns):
     from tigar_tpu_torch.ops.assembly import (residual_vector_adjoint_ref,
                                               shell_kernel_args)
@@ -531,16 +538,17 @@ def kernel_phases(ns):
     for asm in (ns.asm_b32, ns.asm32):
         # K2 reads all but N and writes S; operations: at least the
         # element matrix of the 18x18 pointwise Jacobian with each local
-        # function in 6 jet slots, 2 (18*27*6 + 27*27*6) per point
+        # function in 6 jet slots, E's symmetric half only,
+        # 2 (18*27*6 + 27*28/2*6) per point
         args = shell_kernel_args(asm, dens, U32)
         S_bytes = 225 * ns.mask32.numel() // 3 * 4
         work = (nbytes(U32, *args[:1], *args[2:]) + S_bytes,
-                14580.0 * asm.nel * asm.nq, torch.float32)
+                K2_STENCIL_OPS * asm.nel * asm.nq, torch.float32)
         compare(f"K2 tangent_stencil f32 nq={asm.nq}",
                 lambda a=asm: build_stencil(a, dens, U32, basis, 3).S,
                 lambda a=asm: build_stencil_ref(a, dens, U32, basis, 3).S,
                 TOL["f32_stencil"], 5, 1, rec["tangent_stencil"],
-                match="tangent_stencil_kernel", work=work)
+                match="tangent_stencil", per_call=2, work=work)
 
     # K3 on every smoothed level of the V-cycle (the fine grid and the
     # coarse grids but the last, whose dense inverse is the coarse solve),
@@ -759,8 +767,8 @@ def sumfac_csr(data, mask, dtype=torch.float32):
 
 def sumfac_phases(device):
     """K4 against its plain version: at the Poisson path's fine level in
-    f64 and f32, and once at a small periodic 3D and a small 2D p=3
-    case."""
+    f64 and f32, at each coarser grid of its V-cycle in f32, and once at a
+    small periodic 3D and a small 2D p=3 case."""
     from tigar_tpu_torch.ops.knots import uniform_knots
     from tigar_tpu_torch.models.bspline import TensorBSplineBasis
     from tigar_tpu_torch.ops.sumfac import (build_sumfac_data, sumfac_apply,
@@ -789,6 +797,21 @@ def sumfac_phases(device):
             f"({A._nnz()} entries): {rec[-1]['library_ms']:.4f} ms, "
             f"rel diff {err:.1e}")
 
+    # the V-cycle's coarser grids, in its type
+    for basis, mask in zip(bases[1:], masks[1:]):
+        data = build_sumfac_data(basis, None, QD3, device, torch.float32)
+        W = torch.as_tensor(rng.normal(size=basis.ncp), device=device,
+                            dtype=torch.float32)
+        m = torch.as_tensor(mask, device=device, dtype=torch.float32)
+        tables = data.B + data.D + data.w + data.starts
+        n = basis.nel_per_dir[0]
+        compare(f"K4 sumfac_apply f32 {n}^3 p={P3}",
+                lambda d=data, w=W, m=m: sumfac_apply(d, w, 1.0, 0.0, m),
+                lambda d=data, w=W, m=m: sumfac_apply_ref(d, w, 1.0, 0.0, m),
+                TOL["f32"], 50, 1, rec, match="sumfac",
+                work=(nbytes(W, m, W, *tables), sumfac_flops(data),
+                      torch.float32), per_call=2)
+
     small = (("periodic 3D nel=8 p=2", 3, 2, 8, True),
              ("2D nel=64 p=3", 2, 3, 64, False))
     for label, dim, p, nel, per in small:
@@ -816,6 +839,23 @@ def k3_levels(label):
           for g, c in sorted(by("stencil_apply").items(), reverse=True)}
     say(f"{label} K3 launches by grid: {lv}")
     return lv
+
+
+# K2's launches by type and point count (and local functions, element
+# mode), K4's by grid and type, per path: filled by ``tally``
+TALLIES = {}
+
+
+def tally(path, names):
+    """The launches of kernels ``names`` by the key their wrappers give
+    (``cuda_ext.counts_by``) since the last count reset, printed and kept
+    in TALLIES[path] (empty from a tree whose wrappers give no key)."""
+    from tigar_tpu_torch.ops import cuda_ext
+    got = {n: {str(k): c for k, c in sorted(cuda_ext.counts_by(n).items(),
+                                            key=str)} for n in names}
+    TALLIES[path] = got
+    say(f"{path} launches by key: {got}")
+    return got
 
 
 def best_of_3(fn):
@@ -891,6 +931,7 @@ def poisson_main_path(device):
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
     launches = cuda_ext.counts()["sumfac_apply"]
+    tally("poisson", ("sumfac_apply",))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     _, rel_w = poisson_solve(pb)
@@ -956,7 +997,9 @@ def poisson_checks(device, pb, err96):
 
 def profile_poisson(pb):
     """torch.profiler over one warm 96^3 MG-CG solve: device busy time
-    against the un-profiled wall, and the largest kernels."""
+    against the un-profiled wall, and the largest kernels; returns the
+    busy and wall ms, the busy share and K4's device ms (None where
+    nothing was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
@@ -974,7 +1017,7 @@ def profile_poisson(pb):
             and e.self_device_time_total > 0]
     if not rows:
         say("profile poisson solve: no device time recorded (not measured)")
-        return
+        return None
     dev_ms = sum(r[2] for r in rows) / 1e3
     say(f"profile poisson solve: device busy {dev_ms:.3f} ms of "
         f"{wall * 1e3:.3f} ms un-profiled wall (busy share "
@@ -982,6 +1025,10 @@ def profile_poisson(pb):
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:10]:
         say(f"    {us / 1e3:9.3f} ms  {us / 1e3 / dev_ms:6.3f} of busy  "
             f"{count:6d} x  {key[:90]}")
+    return dict(busy_ms=dev_ms, wall_ms=wall * 1e3,
+                busy=dev_ms / wall / 1e3,
+                k4_ms=sum(r[2] for r in rows if "sumfac" in r[0]) / 1e3,
+                k4_launches=sum(r[1] for r in rows if "sumfac" in r[0]))
 
 
 # -- the two-patch coupled shell path -------------------------------------------
@@ -1181,7 +1228,7 @@ def iface_kernel_phases(ns, cpl, rec):
                                                                b, 3).S,
                     tol, 3, 1, rec["tangent_stencil"],
                     work=(nbytes(U, *args[:1], *args[2:]) + S_bytes,
-                          14580.0 * sub.nel * sub.nq, U.dtype))
+                          K2_STENCIL_OPS * sub.nel * sub.nq, U.dtype))
         e0 += pt.nel
 
     for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
@@ -1316,6 +1363,7 @@ def two_patch_main_path(ns, cpl, sizes, setup_s):
         f"{sizes})")
     say(f"two-patch main-path kernel launches: {launches}")
     levels = k3_levels("two-patch main path")
+    tally("two_patch", ("tangent_stencil",))
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("two-patch solution is not finite or has the wrong "
                          "shape")
@@ -1492,6 +1540,7 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
         f"beta_r={cpl.params['beta_r']:g})")
     say(f"two-patch Nitsche main-path kernel launches: {launches}")
     levels = k3_levels("two-patch Nitsche main path")
+    tally("two_patch_nitsche", ("tangent_stencil",))
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("two-patch Nitsche solution is not finite or has "
                          "the wrong shape")
@@ -1815,6 +1864,7 @@ def sa_main_path(ns, U_stencil, setup_s):
         f"{err:.3e} (bound 1e-7)")
     say(f"SANewton main-path kernel launches: {launches}; K11 by (op, "
         f"mode): {cuda_ext.counts_by('ell_spmv')}")
+    tally("sa_newton", ("tangent_elements",))
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("SANewton solution is not finite or has the wrong "
                          "shape")
@@ -1949,6 +1999,7 @@ def ts_main_path(ns, setup_sa_s):
     from tigar_tpu_torch.ops import cuda_ext
     say(f"star T-spline main-path kernel launches: {launches}; K11 by "
         f"(op, mode): {cuda_ext.counts_by('ell_spmv')}")
+    tally("star_tspline", ("tangent_elements",))
     if tuple(U.shape) != (out["ndof"],) or not bool(torch.isfinite(U).all()):
         raise SystemExit("star T-spline solution is not finite or has the "
                          "wrong shape")
@@ -2989,6 +3040,7 @@ def main():
         f"{peak_gb:.3f} GiB")
     say(f"main-path kernel launches: {launches}")
     k3_levels("shell main path")
+    tally("shell", ("tangent_stencil",))
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("solution is not finite or has the wrong shape")
     shell_kernels = ("shell_residual", "tangent_stencil", "stencil_apply")
@@ -3238,7 +3290,9 @@ def main():
             "device_ms": timed.get("dev_ms"),
             "library_device_ms": timed.get("library_dev_ms"),
             "launches_by_path": {p: c[name] for p, c in by_path.items()
-                                 if name in c}})
+                                 if name in c},
+            "launches_by_key": {p: t[name] for p, t in TALLIES.items()
+                                if name in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 tigar_tpu_torch on one CUDA card, so that two versions of the port can be
 timed in turns on one card:
 
-    python scripts/compare_trees.py --what k12_k5|shell|k10_k3|k11_k16 \
+    python scripts/compare_trees.py \
+        --what k12_k5|shell|k10_k3|k11_k16|k2_k4 \
         --tree DIR --label NAME [--out FILE]
 
 imports ``tigar_tpu_torch`` from DIR (its kernels build into DIR/build)
@@ -64,6 +65,27 @@ on the 24^3 drop-1 Poisson field and the 128^2 shell's fields (f64, f32)
 beside J^T @ F as one CSR product and the byte bound; the sumfac
 residual's best of 3 at 128^2 (f64, f32) and 24^3 (f64); then the
 SANewton 128^2 and star paths as ``k10_k3``.
+
+``--what k2_k4``: first, each part in a fresh process of its own
+(``--what k2_k4_part --part NAME``), K2 (the SVK shell tangent) at every
+mode, type and point count its paths build: the 128^2 shell's stencil
+builds (f32 at 4 and 9 points, f64 at 4) and its element mode with the BC
+mask at the connectivity (f32, f64; 4 points), each patch of the
+two-patch shell (f32 builds and f64 polish tangents; 4 points), the star
+T-spline's element mode (nel 48, 16 local functions a field; f32 and f64
+at 9 and 16 points), at chip_smoke.py's seeded states, each with the
+device ms of every device event of a call (the stencil mode's fold and
+memset included) and its operations or bytes bound; K4 (the
+sum-factorized apply) on every grid of the 96^3 Poisson hierarchy
+(96^3 ... 6^3) in f32 and f64, device ms of every device event of a call,
+beside the same BC'd operator as one torch.sparse CSR matrix of the same
+type and the operations bound.  Then the paths through them: as
+``k10_k3``'s (the shell, the two-patch penalty and Nitsche shells, the
+128^2 shell through SANewton and the star), and the 96^3 Poisson MG-CG
+solve (cold and warm, the relative residual, the L2 error, the busy share
+of a warm solve and K4's device ms in it), with K2's and K4's launches by
+key on each path (``chip_smoke.tally``; empty from a tree whose wrappers
+give no key).
 """
 
 import argparse
@@ -289,6 +311,7 @@ def k10_k3_paths(cs, dev):
     cuda_ext.reset_counts()
     ns, U1, step_s, Usol, rec = shell_solution(cs, dev)
     levels = cs.k3_levels("shell")
+    cs.tally("shell", ("tangent_stencil",))
     polish_s = cs.best_of_3(lambda: ns.polish_step(U1))
     out["shell"] = dict(**rec, k3_by_grid=levels,
                         **_steps(cs, ns, U1, step_s, polish_s))
@@ -509,6 +532,140 @@ def k16_part(cs, dev, timed, tree):
 
 
 K11_K16_PARTS = ("k11 128^2", "k11 star", "k11 two-level", "k16")
+K2_K4_PARTS = ("k2 128^2", "k2 two-patch", "k2 star", "k4")
+
+
+def k2_shapes(cs, dev, where):
+    """(label, call, bound) of K2 at the shapes of ``where``."""
+    import torch
+    from tigar_tpu_torch.ops.assembly import shell_kernel_args
+    from tigar_tpu_torch.ops.stencil import build_stencil
+    out = []
+
+    def stencil(label, asm, dens, U, basis, ncp):
+        args = shell_kernel_args(asm, dens, U)
+        work = (cs.nbytes(U, *args[:1], *args[2:])
+                + 225 * ncp * U.element_size(),
+                cs.K2_STENCIL_OPS * asm.nel * asm.nq, U.dtype)
+        out.append((label, lambda: build_stencil(asm, dens, U, basis, 3),
+                    cs.bound(*work)[0]))
+
+    def elements(label, asm, dens, U, me):
+        out.append((label, lambda: asm.element_matrices_adjoint(dens, U,
+                                                                 me=me),
+                    cs.bound(*cs.elements_work(asm, dens, U, me))[0]))
+
+    if where == "128^2":
+        ns, _ = cs.build_solver(cs.NEL, dev)
+        U64 = cs.smooth_state(ns)
+        ncp = ns.mask32.numel() // 3
+        for asm, U in ((ns.asm_b32, U64.float()), (ns.asm32, U64.float()),
+                       (ns.asm_b64, U64)):
+            stencil(f"stencil {str(U.dtype)[6:]} nq={asm.nq}", asm,
+                    ns.adjoint, U, ns.basis, ncp)
+        me = ns.spline.mask[ns.asm_b64.cat_conn]
+        for asm, U in ((ns.asm_b32, U64.float()), (ns.asm_b64, U64)):
+            elements(f"elements {str(U.dtype)[6:]} nq={asm.nq}", asm,
+                     ns.adjoint, U, me.to(U.dtype))
+    elif where == "two-patch":
+        ns, _, _ = cs.build_two_patch(dev)
+        U64 = cs.mp_smooth_state(ns)
+        e0 = 0
+        for p, pt in enumerate(ns.basis.patches):
+            for asm, U in ((ns.asm_b32, U64.float()), (ns.asm_b64, U64)):
+                sub = asm.elements(e0, e0 + pt.nel)
+                stencil(f"stencil {str(U.dtype)[6:]} patch {'AB'[p]} "
+                        f"nel={pt.nel} nq={sub.nq}", sub, ns.adjoint, U, pt,
+                        pt.ncp)
+            e0 += pt.nel
+    else:
+        from tigar_tpu_torch.demos import star_tspline_shell as star_demo
+        ns = star_demo.build(cs.TS_NEL, dev)
+        g = torch.Generator().manual_seed(7)
+        U64 = 0.01 * torch.randn(ns.spline.ndof, generator=g,
+                                 dtype=torch.float64).to(dev)
+        for qd in (4, None):
+            asm0 = ns.spline._assembler("dx", quad_degree=qd)
+            me = ns.spline.mask[asm0.cat_conn] * asm0.masks[0].repeat(1, 3)
+            for dt in (torch.float32, torch.float64):
+                asm = asm0.astype(dt)
+                elements(f"elements {str(dt)[6:]} nq={asm.nq}", asm,
+                         ns.adjoint, U64.to(dt), me.to(dt))
+    return out
+
+
+def k2_part(cs, dev, timed, where):
+    out = {}
+    for label, call, bound_ms in k2_shapes(cs, dev, where):
+        call()
+        out[f"{where} {label}"] = dict(**timed(call, 20), bound_ms=bound_ms)
+    return {"k2": out}
+
+
+def k4_part(cs, dev, timed):
+    """K4 on every grid of the Poisson hierarchy, f32 and f64, beside one
+    CSR product of the same BC'd operator."""
+    import numpy as np
+    import torch
+    from tigar_tpu_torch.ops.sumfac import build_sumfac_data, sumfac_apply
+    bases, masks = cs.poisson_levels(cs.NEL3)
+    rng = np.random.default_rng(2)
+    out = {}
+    for basis, mask in zip(bases, masks):
+        W64 = torch.as_tensor(rng.normal(size=basis.ncp), device=dev)
+        for dt in (torch.float32, torch.float64):
+            data = build_sumfac_data(basis, None, cs.QD3, dev, dt)
+            W, m = W64.to(dt), torch.as_tensor(mask, device=dev).to(dt)
+            reps = 100 if basis.nel_per_dir[0] >= 48 else 400
+            rec = timed(lambda: sumfac_apply(data, W, 1.0, 0.0, m), reps)
+            rec["bound_ms"] = cs.bound(cs.nbytes(W, m, W), cs.sumfac_flops(
+                data), dt)[0]
+            A = cs.sumfac_csr(data, m, dt)
+            rec["csr"] = timed(lambda: torch.mv(A, W), reps)
+            rec["csr_nnz"] = int(A._nnz())
+            del A
+            out[f"{basis.nel_per_dir[0]}^3 {str(dt)[6:]}"] = rec
+    return {"k4": out}
+
+
+def k2_k4_part(cs, dev, timed, tree, part):
+    if part == "k4":
+        return k4_part(cs, dev, timed)
+    return k2_part(cs, dev, timed, part.split(" ", 1)[1])
+
+
+def poisson_path(cs, dev):
+    """The 96^3 Poisson MG-CG solve (cold and warm), its checks, the busy
+    share of a warm solve and K4's device ms in it."""
+    pb, _, err96, launches = cs.poisson_main_path(dev)
+    t0 = time.perf_counter()
+    cs.poisson_solve(pb)
+    import torch
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    return dict(l2_error=err96, k4_launches=launches, warm_s=warm,
+                profile=cs.profile_poisson(pb))
+
+
+def k2_k4(cs, dev, timed, tree):
+    """Each kernel part in a fresh process of its own, then the paths."""
+    out = {"k2": {}, "k4": {}}
+    for p in K2_K4_PARTS:
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--what",
+             "k2_k4_part", "--part", p, "--tree", tree, "--label", p],
+            capture_output=True, text=True)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        if run.returncode or not lines:
+            raise SystemExit(f"part {p} failed:\n{run.stdout[-3000:]}\n"
+                             f"{run.stderr[-3000:]}")
+        got = json.loads(lines[-1])
+        for k in ("k2", "k4"):
+            out[k].update(got.get(k, {}))
+    out["poisson"] = poisson_path(cs, dev)
+    out.update(k10_k3_paths(cs, dev))
+    out["tallies"] = cs.TALLIES
+    return out
 
 
 def k11_k16_part(cs, dev, timed, tree, part):
@@ -541,7 +698,8 @@ def k11_k16(cs, dev, timed, tree):
 
 
 WHAT = {"k12_k5": k12_k5, "shell": shell, "k10_k3": k10_k3,
-        "k11_k16": k11_k16, "k11_k16_part": k11_k16_part}
+        "k11_k16": k11_k16, "k11_k16_part": k11_k16_part, "k2_k4": k2_k4,
+        "k2_k4_part": k2_k4_part}
 
 
 def main():
@@ -550,7 +708,8 @@ def main():
     ap.add_argument("--tree", default=".")
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--part", default=None, choices=K11_K16_PARTS)
+    ap.add_argument("--part", default=None,
+                    choices=K11_K16_PARTS + K2_K4_PARTS)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, HERE)
@@ -581,8 +740,9 @@ def main():
                else cs.device_ms(fn, reps, match, per_call)[0])
         return {"ms": cs.cuda_ms(fn, reps), "device_ms": dev}
 
-    extra = ((tree,) if args.what == "k11_k16" else
-             (tree, args.part) if args.what == "k11_k16_part" else ())
+    extra = ((tree,) if args.what in ("k11_k16", "k2_k4") else
+             (tree, args.part) if args.what in ("k11_k16_part", "k2_k4_part")
+             else ())
     out.update(WHAT[args.what](cs, dev, timed, *extra))
     line = json.dumps(out)
     print(line, flush=True)

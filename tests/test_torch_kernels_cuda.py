@@ -1318,3 +1318,114 @@ def test_sumfac_assembler_runs_through_kernels(cuda):
     assert _rel(rg.cpu(), rc) <= 1e-12 and _rel(tg.cpu(), tc) <= 1e-12
     r_gen = spg._assembler("dx").residual_vector(_shell_form, U.to(cuda))
     assert _rel(rg, r_gen) <= 1e-9
+
+
+# -- the redesigned K2 and K4 at the edges of their blocks and shapes -------
+
+@pytest.mark.parametrize("quad_degree", [1, 2, None, 6],
+                         ids=["nq1", "nq4", "nq9", "nq16"])
+@pytest.mark.parametrize("mode", ["stencil", "elements"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+def test_tangent_kernel_ragged_blocks(cuda, quad_degree, mode, dtype, tol):
+    """K2 on the nel=7 plate (49 elements: no multiple of a block's 8, 3
+    or 1 elements) at 1, 4, 9 and 16 points (the stencil mode takes at
+    most 9), against its plain versions, with its launches tallied by type
+    and point count (element mode: and local functions)."""
+    from tigar_tpu_torch.ops.assembly import element_matrices_adjoint_ref
+    spline = _build(7, cuda)
+    asm = spline._assembler("dx", quad_degree=quad_degree).astype(dtype)
+    U = _state(spline, seed=3, amp=0.05).to(dtype)
+    tag = {torch.float64: "f64", torch.float32: "f32"}[dtype]
+    cuda_ext.reset_counts()
+    if mode == "stencil":
+        if asm.nq > 9:
+            with pytest.raises(ValueError):
+                build_stencil(asm, DENSITY, U, spline.space.fields[0], 3)
+            return
+        basis = spline.space.fields[0]
+        got = build_stencil(asm, DENSITY, U, basis, 3).S
+        want = build_stencil_ref(asm, DENSITY, U, basis, 3).S
+        key = f"{tag} nq={asm.nq}"
+    else:
+        me = spline.mask.to(dtype)[asm.cat_conn]
+        got = asm.element_matrices_adjoint(DENSITY, U, me=me)
+        want = element_matrices_adjoint_ref(asm, DENSITY, U, me)
+        key = f"{tag} nq={asm.nq} nen=9"
+    torch.cuda.synchronize()
+    name = "tangent_stencil" if mode == "stencil" else "tangent_elements"
+    assert cuda_ext.counts_by(name) == {key: 1}
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("case", ["plate", "star", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tangent_elements_exactly_symmetric(cuda, case, dtype):
+    """K2's element mode computes E's upper triangle and mirrors it: E is
+    exactly symmetric in both types, padded elements included."""
+    spline, asm, dens, me = _elem_spline(cuda, case)
+    asm = asm.astype(dtype)
+    E = asm.element_matrices_adjoint(dens, _state(spline, amp=0.01)
+                                     .to(dtype), me=me.to(dtype))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(E).all()) and float(E.abs().max()) > 0.0
+    assert torch.equal(E, E.transpose(1, 2))
+
+
+# K4 at the edges of its shapes: (dim, p, nel, periodic, continuity_drop,
+# extra points), each P1 / Q case of its dispatch
+K4_EDGE_CASES = {
+    "3d_p1_nel10": (3, 1, 10, False, 0, 0),
+    "3d_p1_nq3_nel9": (3, 1, 9, False, 0, 1),
+    "3d_p2_nel12": (3, 2, 12, False, 0, 0),
+    "3d_p2_nq4_nel9": (3, 2, 9, False, 0, 1),
+    "3d_p3_nel6": (3, 3, 6, False, 0, 0),
+    "3d_p3_nq5_nel5": (3, 3, 5, False, 0, 1),
+    "3d_drop1_p2_nel10": (3, 2, 10, False, 1, 0),
+    "3d_periodic_p2_nel3": (3, 2, 3, True, 0, 0),
+    "3d_periodic_p2_nel9": (3, 2, 9, True, 0, 0),
+    "2d_p3_nel20": (2, 3, 20, False, 0, 0),
+    "2d_drop2_p3_nel17": (2, 3, 17, False, 2, 1),
+    "2d_periodic_p2_nel33": (2, 2, 33, True, 0, 1),
+}
+
+
+@pytest.mark.parametrize("metric", [False, True], ids=["identity", "metric"])
+@pytest.mark.parametrize("name", list(K4_EDGE_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sumfac_apply_kernel_edges(cuda, name, metric, dtype, tol):
+    """K4 on grids of 3 to 33 elements a direction (none a multiple of its
+    128-thread blocks), windows that wrap onto themselves (periodic, 3
+    elements), reduced continuity and every P1 / Q case it dispatches,
+    identity and general geometry, with and without the mask, against its
+    plain version; its launches tallied by grid and type."""
+    from tigar_tpu_torch.models.bspline import TensorBSplineBasis
+    dim, p, nel, per, drop, extra = K4_EDGE_CASES[name]
+    basis = TensorBSplineBasis([p] * dim, [uniform_knots(
+        p, 0.0, 1.0, nel, periodic=per, continuity_drop=drop)] * dim)
+    data = sumfac.build_sumfac_data(basis, None, 2 * (p + extra), cuda,
+                                    dtype)
+    assert data.nq == p + 1 + extra
+    rng = np.random.default_rng(8)
+    if metric:
+        npt = data.nq ** dim
+        A = rng.normal(size=(basis.nel, npt, dim, dim))
+        data.G = torch.as_tensor(A @ np.swapaxes(A, -1, -2)
+                                 + dim * np.eye(dim), dtype=dtype,
+                                 device=cuda)
+        data.Gm = torch.as_tensor(rng.uniform(0.5, 1.5, (basis.nel, npt)),
+                                  dtype=dtype, device=cuda)
+    W = torch.as_tensor(rng.normal(size=data.ndof), dtype=dtype,
+                        device=cuda)
+    mask = torch.as_tensor((rng.uniform(size=data.ndof) > 0.2) * 1.0,
+                           dtype=dtype, device=cuda)
+    tag = {torch.float64: "f64", torch.float32: "f32"}[dtype]
+    for m in (None, mask):
+        cuda_ext.reset_counts()
+        r_k = sumfac.sumfac_apply(data, W, 1.0, 0.7, m)
+        r_t = sumfac.sumfac_apply_ref(data, W, 1.0, 0.7, m)
+        torch.cuda.synchronize()
+        assert cuda_ext.counts_by("sumfac_apply") == {
+            f"{'x'.join(map(str, data.nel_d))} {tag}": 1}
+        assert _rel(r_k, r_t) <= tol, (m is None, _rel(r_k, r_t))

@@ -147,8 +147,10 @@ torch::Tensor tangent_stencil(torch::Tensor U, torch::Tensor conn,
   TORCH_CHECK(a.nq >= 1 && a.nq <= 9, "tangent_stencil takes at most 9 "
               "quadrature points, got ", a.nq);
   const c10::cuda::CUDAGuard guard(U.device());
-  auto S = torch::zeros({3, 3, 5, 5, grid_shape[0], grid_shape[1]},
+  // every entry of S is written by the fold; E is its scratch
+  auto S = torch::empty({3, 3, 5, 5, grid_shape[0], grid_shape[1]},
                         U.options());
+  auto E = torch::empty({a.nel, 27, 27}, U.options());
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
   cudaError_t err;
   if (U.scalar_type() == torch::kFloat) {
@@ -156,15 +158,15 @@ torch::Tensor tangent_stencil(torch::Tensor U, torch::Tensor conn,
     err = tigar::tangent_stencil_launch<T>(
         nel_shape[0], nel_shape[1], a.nq, conn.data_ptr<int>(), ptr<T>(U),
         ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
-        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), grid_shape[0],
-        grid_shape[1], S.data_ptr<T>(), stream);
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), E.data_ptr<T>(),
+        S.data_ptr<T>(), stream);
   } else {
     using T = double;
     err = tigar::tangent_stencil_launch<T>(
         nel_shape[0], nel_shape[1], a.nq, conn.data_ptr<int>(), ptr<T>(U),
         ptr<T>(dN), ptr<T>(d2N), ptr<T>(scale), ptr<T>(DF), ptr<T>(d2F),
-        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), grid_shape[0],
-        grid_shape[1], S.data_ptr<T>(), stream);
+        ptr<T>(ra), ptr<T>(rb), ptr<T>(ea), consts.data(), E.data_ptr<T>(),
+        S.data_ptr<T>(), stream);
   }
   check_launch(err, "tangent_stencil");
   return S;

@@ -47,16 +47,18 @@ cudaError_t shell_residual_launch(int nel, int nq, int nen, const int* conn,
                                   const double* consts, T* r,
                                   cudaStream_t stream);
 
-// K2: SVK shell tangent stencil, one block per element.
-// consts = {lam_ps, 2 mu, h, h^3/12}; S zero-initialised [3,3,5,5,ncpy,ncpx].
+// K2: SVK shell tangent stencil of biquadratic elements: the element
+// matrices into the scratch E [nel][27][27], then their fold into every
+// entry of S [3,3,5,5,nel_y+2,nel_x+2] (no initialisation needed).
+// consts = {lam_ps, 2 mu, h, h^3/12}.
 template <typename T>
 cudaError_t tangent_stencil_launch(int nel_y, int nel_x, int nq,
                                    const int* conn, const T* U, const T* dN,
                                    const T* d2N, const T* scale, const T* DF,
                                    const T* d2F, const T* ref_a,
                                    const T* ref_b, const T* ea,
-                                   const double* consts, int ncp_y,
-                                   int ncp_x, T* S, cudaStream_t stream);
+                                   const double* consts, T* E, T* S,
+                                   cudaStream_t stream);
 
 // K2, element mode: the element matrices of nen = 9 or 16 local functions
 // a field (1 <= nq <= 16) written to E [nel][3 nen][3 nen] (every entry

@@ -554,7 +554,9 @@ def element_matrices_cuda(asm, density, U, me=None):
     (steps 1-2) for 9 or 16 local functions a field and at most 16
     quadrature points, each entry masked by the padding mask on both sides
     and by me[a] me[b] when ``me`` is given, written to E [nel, nloc,
-    nloc] instead of folded into a stencil."""
+    nloc] (its upper triangle computed, mirrored: E is exactly symmetric)
+    instead of folded into a stencil.  Its launches are tallied by dtype,
+    point count and local functions (``cuda_ext.counts_by``)."""
     if asm.nq > TANGENT_ELEMENTS_MAXQ:
         raise ValueError("the tangent kernel takes at most "
                          f"{TANGENT_ELEMENTS_MAXQ} quadrature points, got "
@@ -570,7 +572,9 @@ def element_matrices_cuda(asm, density, U, me=None):
                              _contiguous(shell_padding_mask(asm)),
                              list(density.kernel_constants()[:4]),
                              _contiguous(me))
-    cuda_ext.count("tangent_elements")
+    cuda_ext.count("tangent_elements",
+                   f"{cuda_ext.short_dtype(U.dtype)} nq={asm.nq} "
+                   f"nen={asm.nens[0]}")
     return E
 
 

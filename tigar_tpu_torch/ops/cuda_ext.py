@@ -10,7 +10,9 @@ for the process.  Nothing is built at import time.
 
 Each kernel wrapper calls ``count(name)`` right after it launches its
 kernel, so a run can prove which kernels its main path went through; K3's
-also gives its grid, so a run can count its launches by multigrid level.
+also gives its grid, K4's its grid and type, and K2's its type and point
+count (and, in element mode, its local functions), so a run can count its
+launches by multigrid level, type and mode.
 """
 
 from __future__ import annotations
@@ -75,6 +77,12 @@ def count(name, key=None):
     _launches[name] += 1
     if key is not None:
         _by_key[name, key] = _by_key.get((name, key), 0) + 1
+
+
+def short_dtype(dt):
+    """"f32" / "f64" for a tally key."""
+    return {"torch.float32": "f32", "torch.float64": "f64"}.get(str(dt),
+                                                               str(dt))
 
 
 def reset_counts():

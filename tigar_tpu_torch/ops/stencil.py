@@ -295,9 +295,11 @@ def build_stencil_ref(asm, adjoint_density, U, basis, nf):
 
 def build_stencil_cuda(asm, adjoint_density, U, basis, nf):
     """Kernel K2: per element, the 18x18 pointwise jet-Jacobian of the SVK
-    adjoint at each quadrature point by forward-mode dual numbers, the
-    27x27 element matrix E = sum_q w_q B^T K B in shared memory, and an
-    atomic fold of each entry into S at offset (b - a) + p."""
+    adjoint at each quadrature point by forward-mode dual numbers (a block
+    takes a few elements), the upper triangle of the 27x27 element matrix
+    E = sum_q w_q B^T K B by register tiles, and an atomic fold of each
+    entry and its mirror into S at offset (b - a) + p.  Its launches are
+    tallied by dtype and point count (``cuda_ext.counts_by``)."""
     from .assembly import shell_kernel_args, shell_padding_mask
     if asm.nens[0] != 9 or shell_padding_mask(asm) is not None:
         raise ValueError("the stencil fold takes unpadded biquadratic "
@@ -314,5 +316,6 @@ def build_stencil_cuda(asm, adjoint_density, U, basis, nf):
     S = ext.tangent_stencil(U.contiguous(), *args,
                             list(adjoint_density.kernel_constants()[:4]),
                             list(nel_shape), list(grid_shape))
-    cuda_ext.count("tangent_stencil")
+    cuda_ext.count("tangent_stencil",
+                   f"{cuda_ext.short_dtype(U.dtype)} nq={asm.nq}")
     return StencilOperator(S, grid_shape, degrees, nf)

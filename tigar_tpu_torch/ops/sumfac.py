@@ -240,7 +240,8 @@ def sumfac_apply_cuda(data, W, ck, cm, mask=None):
     """Kernel K4: one thread per element; the window, the three-stage
     contraction chains and the transposed chains in registers; atomic
     scatter-add, then the BC epilogue (2D/3D, p <= 3, nq in {p+1, p+2},
-    float32 or float64)."""
+    float32 or float64).  Its launches are tallied by grid and type
+    (``cuda_ext.counts_by``)."""
     dim = data.dim
     if not W.is_cuda or W.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K4 takes a CUDA float32/float64 W, got "
@@ -262,7 +263,8 @@ def sumfac_apply_cuda(data, W, ck, cm, mask=None):
     r = ext.sumfac_apply(W, data.B, data.D, data.starts,
                          data.w if data.G is None else [], data.G, data.Gm,
                          mask, list(data.ncp_d), float(ck), float(cm))
-    cuda_ext.count("sumfac_apply")
+    cuda_ext.count("sumfac_apply", f"{'x'.join(map(str, data.nel_d))} "
+                                   f"{cuda_ext.short_dtype(W.dtype)}")
     return r
 
 
