@@ -88,7 +88,8 @@ Phases, each fatal on failure (nothing is caught):
      nitsche_opcount.cpp, built with the host compiler); the best of 3
      warm f32
      steps; the full solve with the f32 phase first (as the bench) with
-     every launch count reset just before it and read just after; the
+     every launch count reset just before it and read just after (K2's
+     and K9's launches by type and point count); the
      floor certificate with the bench's Nitsche guard floor_rel = 1e-8;
      the small-input reference on the Nitsche plate of
      tests/test_newton_mp.py:132 (card against CPU plain versions: steps
@@ -143,14 +144,17 @@ Phases, each fatal on failure (nothing is caught):
      action, f32 and f64) against their plain versions on the 96^2
      points at tests/test_contact.py's active state (k=1e4, r_max=0.3,
      r_self=0.05; U = 0.01 N(0, 1), numpy seed 0), f64 1e-12 and f32 1e-5
-     of the largest entry, their pair counts, bounds and device times.
+     of the largest entry, their pair counts (live, interacting, and the
+     tile pairs their cull keeps), bounds and device times.
      After the other phases' profiles (so that their sessions run before
      any CUDA graph exists): one time step through the demo's entry
      point
      (tigar_tpu_torch.demos.reef_knot_contact.run) with every launch
      count reset just before it and read just after, converging to rel <
-     1e-4 within one Newton iteration of the JAX demo's count; K13/K14 at
-     the demo's own contact at the state after the step (no profiler);
+     1e-4 within one Newton iteration of the JAX demo's count, K13/K14's
+     launches by type; K13/K14 at the demo's own contact at the state
+     after the step (no pair interacts: exact zeros), timed with their
+     device times;
      the card against the CPU plain versions at NEL=6 (MG=0) and NEL=12
      (MG=1, the form-based V-cycle), f64 CG of 10 iterations (the same
      Newton count, U within 1e-10); the profile of 5 iterations of a
@@ -1053,7 +1057,7 @@ def nitsche_ops():
                        "nitsche_opcount.cpp")
     exe = os.path.join(ROOT, "build", "nitsche_opcount")
     os.makedirs(os.path.dirname(exe), exist_ok=True)
-    subprocess.run([os.environ.get("CXX", "c++"), "-std=c++17", "-O1",
+    subprocess.run([os.environ.get("CXX", "c++"), "-std=c++17", "-O0",
                     "-o", exe, src], check=True)
     out = subprocess.run([exe], capture_output=True, text=True,
                          check=True).stdout
@@ -1435,10 +1439,12 @@ def nitsche_kernel_phases(ns, rec):
     need8 = 2 * (ops["geom"] + ops["jets"] + ops["grad"])
     need9 = 2 * (ops["geom"] + ops["jets"] + ops["hess"])
     own8 = 2 * ops["geom"] + 54 * ops["pass1"]
-    own9 = own8 + 756 * ops["pass2"]
+    own9 = 2 * ops["geom"] + 54 * ops["col"]
+    old9 = own8 + 756 * ops["pass2"]
     say(f"Nitsche operations a point: K8 needs {need8}, runs {own8} "
         f"({own8 / need8:.1f}x); K9 needs {need9}, runs {own9} "
-        f"({own9 / need9:.1f}x)")
+        f"({own9 / need9:.1f}x; its passes before the symmetric scheme "
+        f"{old9}, {old9 / need9:.1f}x)")
     levels = [("fine", ns.couplings[0], mp_smooth_state(ns))]
     for i, (sp, cl) in enumerate(zip(ns.mg_splines, ns.mg_couplings)):
         g = torch.Generator().manual_seed(5 + i)
@@ -1540,7 +1546,7 @@ def two_patch_nitsche_main_path(ns, cpl, sizes, setup_s):
         f"beta_r={cpl.params['beta_r']:g})")
     say(f"two-patch Nitsche main-path kernel launches: {launches}")
     levels = k3_levels("two-patch Nitsche main path")
-    tally("two_patch_nitsche", ("tangent_stencil",))
+    tally("two_patch_nitsche", ("tangent_stencil", "nitsche_iface_tangent"))
     if tuple(Usol.shape) != (ndof,) or not bool(torch.isfinite(Usol).all()):
         raise SystemExit("two-patch Nitsche solution is not finite or has "
                          "the wrong shape")
@@ -2367,24 +2373,37 @@ RK_TOL = {"f64": 1e-12, "f32": 1e-5, "ref": 1e-10}
 
 
 def contact_pair_counts(c, x):
-    """(live pairs, interacting pairs: live with r < r_max) at points x."""
-    n, live, inter = x.shape[0], 0, 0
+    """(live pairs, interacting pairs: live with r < r_max, live pairs in
+    the tile pairs the kernels keep, tile pairs kept, tile pairs) at
+    points x (the kept tiles by ``ops.contact.culled_tile_pairs``, in
+    x's type)."""
+    from tigar_tpu_torch.ops import contact as oc
+    xd = x.double()
+    n, live, inter, kept_live = x.shape[0], 0, 0, 0
+    culled = oc.culled_tile_pairs(x, c.pair_bits, c.r_max)
+    keep = ~culled
     for i0 in range(0, n, 1024):
-        d2 = ((x[i0:i0 + 1024, None, :] - x[None, :, :]) ** 2).sum(-1)
+        d2 = ((xd[i0:i0 + 1024, None, :] - xd[None, :, :]) ** 2).sum(-1)
         m = c.pair_mask[i0:i0 + 1024]
         live += int(m.sum())
         inter += int((m & (d2 < c.r_max ** 2)).sum())
-    return live, inter
+        rows = torch.arange(i0, min(i0 + 1024, n), device=x.device) // 32
+        cols = torch.arange(n, device=x.device) // 32
+        kept_live += int((m & keep[rows][:, cols]).sum())
+    return live, inter, kept_live, int(keep.sum()), keep.numel()
 
 
 def contact_kernel_phases(c, U, W, label, rec, profile):
     """K13 and K14 against their plain versions at the state U (point
-    perturbations P W for K14), in f64 and f32.  Their bound: the n^2
-    mask bytes, the points, weights (and perturbations) read once and the
-    result written once, against the kernels' operations on this state's
-    pairs: 8 a live pair (the squared distance), 10 more an interacting
-    one for K13, 28 more for K14.  With ``profile`` each kernel's device
-    time is taken right away (torch.profiler)."""
+    perturbations P W for K14), in f64 and f32, each timed (CUDA events;
+    with ``profile``, the device time of its two launches right away,
+    torch.profiler).  Their bound: the mask's bits (words and tiles), the
+    points, weights (and perturbations) read once and the result written
+    once, against the operations the kernels' cull leaves: 8 a live pair
+    of a kept tile pair (the squared distance), 10 more an interacting
+    one for K13, 28 more for K14; the bound with the bool mask's n^2
+    bytes and every live pair's 8 is printed beside it.  A state with no
+    interacting pair must give exact zeros."""
     from tigar_tpu_torch.ops import contact as oc
     for dt in (torch.float64, torch.float32):
         tname = "f64" if dt == torch.float64 else "f32"
@@ -2392,44 +2411,64 @@ def contact_kernel_phases(c, U, W, label, rec, profile):
         x = cc.positions(U.to(dt)).contiguous()
         v = cc._apply_P(W.to(dt)).contiguous()
         n = x.shape[0]
-        live, inter = contact_pair_counts(cc, x.double())
+        live, inter, kept_live, kept, tiles = contact_pair_counts(cc, x)
         say(f"contact state {label} {tname}: n={n}, live pairs {live}, "
-            f"interacting pairs (live, r < r_max) {inter}")
-        io = n * n + x.element_size() * (2 * x.numel() + n)
-        for name, kern, plain, work in (
+            f"interacting pairs (live, r < r_max) {inter}; tile pairs kept "
+            f"by the cull {kept} of {tiles}, holding {kept_live} live "
+            f"pairs")
+        es = x.element_size()
+        bits = nbytes(cc.pair_bits.words, cc.pair_bits.tiles)
+        io = es * (2 * x.numel() + n)
+        for name, kern, plain, work, bool_work in (
                 ("contact_residual",
                  lambda: oc.contact_forces(x, cc.quad_w, cc.pair_mask, cc.k,
-                                           cc.r_max),
+                                           cc.r_max, bits=cc.pair_bits),
                  lambda: oc.contact_forces_ref(x, cc.quad_w, cc.pair_mask,
                                                cc.phi, cc.r_max,
                                                cc.row_chunk),
-                 (io, 8.0 * live + 10.0 * inter, dt)),
+                 (bits + io, 8.0 * kept_live + 10.0 * inter, dt),
+                 (n * n + io, 8.0 * live + 10.0 * inter, dt)),
                 ("contact_tangent",
                  lambda: oc.contact_hvp(x, v, cc.quad_w, cc.pair_mask, cc.k,
-                                        cc.r_max),
+                                        cc.r_max, bits=cc.pair_bits),
                  lambda: oc.contact_hvp_ref(x, v, cc.quad_w, cc.pair_mask,
                                             cc.phi, cc.r_max, cc.row_chunk),
-                 (io + x.element_size() * v.numel(),
-                  8.0 * live + 28.0 * inter, dt))):
+                 (bits + io + es * v.numel(),
+                  8.0 * kept_live + 28.0 * inter, dt),
+                 (n * n + io + es * v.numel(), 8.0 * live + 28.0 * inter,
+                  dt))):
             kn = "K13" if name == "contact_residual" else "K14"
             rec.setdefault(name, [])
+            reps = 20 if profile else 10
             yk, yp = kern(), plain()
             torch.cuda.synchronize()
             if float(yp.abs().max()) == 0.0:
                 # no interacting pair: both sides must be exactly zero
                 err = float(yk.abs().max())
+                ms = cuda_ms(kern, reps)
                 say(f"phase {kn} {name} {tname} {label} n={n}: no "
-                    f"interacting pair, max |kernel| {err:.3e}")
+                    f"interacting pair, max |kernel| {err:.3e}, kernel "
+                    f"{ms:.4f} ms")
                 if err != 0.0:
                     raise SystemExit(f"{kn} {name} FAILED at {label}")
-                rec[name].append(dict(name=f"{kn} {name} {tname} {label}",
-                                      rel=0.0, abs=0.0))
-                continue
-            compare(f"{kn} {name} {tname} {label} n={n}", kern, plain,
-                    RK_TOL[tname], 20 if profile else 5,
-                    2 if profile else 0, rec[name],
-                    match="contact_pairs_kernel" if profile else None,
-                    work=work if profile else None)
+                entry = dict(name=f"{kn} {name} {tname} {label}", rel=0.0,
+                             abs=0.0, ms=ms, plain_ms=None)
+                entry["bound_ms"], entry["bound_by"] = bound(*work)
+                say(f"    bound {entry['bound_ms']:.4f} ms by "
+                    f"{entry['bound_by']} ({work[0] / 1e6:.2f} MB, "
+                    f"{work[1] / 1e9:.4f} GFLOP)")
+                if profile:
+                    entry["probe"] = (kern, reps, "contact_", 2)
+                rec[name].append(entry)
+            else:
+                compare(f"{kn} {name} {tname} {label} n={n}", kern, plain,
+                        RK_TOL[tname], reps, 2 if profile else 0, rec[name],
+                        match="contact_" if profile else None,
+                        work=work, per_call=2)
+            bt, bb = bound(*bool_work)
+            say(f"    with the bool mask's bytes and every live pair: bound "
+                f"{bt:.4f} ms by {bb} ({bool_work[0] / 1e6:.2f} MB, "
+                f"{bool_work[1] / 1e9:.4f} GFLOP)")
             if profile:
                 probe_device_time(rec[name][-1])
 
@@ -2470,6 +2509,7 @@ def reef_knot_path(device, rec):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda_ext.counts()
+    tally("reef_knot", ("contact_residual", "contact_tangent"))
     rel_final = hist[0][-1]
     say(f"reef-knot demo (NEL={RK_NEL}, MG=1, MIXED=1): {wall:.3f} s "
         f"with setup; step 1 in {len(hist[0])} residual evaluations "
@@ -2487,7 +2527,7 @@ def reef_knot_path(device, rec):
     c = PointContact(demo.build_spline(RK_NEL, device), **demo.CONTACT)
     W = torch.as_tensor(np.random.default_rng(1).normal(size=U.numel()),
                         device=device)
-    contact_kernel_phases(c, U, W, "(b)", rec, profile=False)
+    contact_kernel_phases(c, U, W, "(b)", rec, profile=True)
 
     # step 3: card against the CPU plain versions
     for nel, mg in ((6, False), (12, True)):

@@ -4,7 +4,7 @@ tigar_tpu_torch on one CUDA card, so that two versions of the port can be
 timed in turns on one card:
 
     python scripts/compare_trees.py \
-        --what k12_k5|shell|k10_k3|k11_k16|k2_k4 \
+        --what k12_k5|shell|k10_k3|k11_k16|k2_k4|k14_k9 \
         --tree DIR --label NAME [--out FILE]
 
 imports ``tigar_tpu_torch`` from DIR (its kernels build into DIR/build)
@@ -86,6 +86,22 @@ solve (cold and warm, the relative residual, the L2 error, the busy share
 of a warm solve and K4's device ms in it), with K2's and K4's launches by
 key on each path (``chip_smoke.tally``; empty from a tree whose wrappers
 give no key).
+
+``--what k14_k9``: first, each part in a fresh process of its own
+(``--what k14_k9_part --part NAME``), K13 and K14 (the contact forces and
+tangent action) in f64 and f32 on the reef-knot demo's 9,604 points at
+state (a) (``chip_smoke.RK_ACTIVE``, U and W as ``contact_early``) and
+at state (b) (the demo's own contact at the state after its first step,
+which part "reef knot" takes and saves under the tree's build/), each
+with its live and interacting pairs and, from a tree that culls, the
+tile pairs the cull keeps and the live pairs in them, its bound from
+the tree's mask layout; the reef-knot demo's step (wall, residual
+evaluations, K13 / K14 launches by key); K9 (the Nitsche interface
+tangent block) in f64 and f32 on the interfaces of the two-patch
+Nitsche solver's three levels (768, 384 and 192 points) at
+``chip_smoke``'s seeded states.  Device ms of every device event of a
+call, and of the kernels' own launches alone.  Then the two-patch
+Nitsche solve (steps, seconds, K9's launches by key).
 """
 
 import argparse
@@ -697,9 +713,163 @@ def k11_k16(cs, dev, timed, tree):
     return out
 
 
+K14_K9_PARTS = ("reef knot", "k14 (a)", "k14 (b)", "k9")
+
+
+def _contact_calls(cs, c, U, W, dev):
+    """(label, call, bound ms, counts) of K13 and K14 at state U, f64 and
+    f32, through the tree's wrappers (with its bits, where it keeps
+    them)."""
+    import torch
+    from tigar_tpu_torch.ops import contact as oc
+    out = []
+    for dt in (torch.float64, torch.float32):
+        cc = c if dt == torch.float64 else c.astype(dt)
+        x = cc.positions(U.to(dt)).contiguous()
+        v = cc._apply_P(W.to(dt)).contiguous()
+        n, es = x.shape[0], x.element_size()
+        kw = {"bits": cc.pair_bits} if hasattr(cc, "pair_bits") else {}
+        xd = x.double()
+        live = inter = kept_live = 0
+        keep = (~oc.culled_tile_pairs(x, cc.pair_bits, cc.r_max)
+                if kw else None)
+        for i0 in range(0, n, 1024):
+            d2 = ((xd[i0:i0 + 1024, None] - xd[None]) ** 2).sum(-1)
+            m = cc.pair_mask[i0:i0 + 1024]
+            live += int(m.sum())
+            inter += int((m & (d2 < cc.r_max ** 2)).sum())
+            if keep is not None:
+                rows = torch.arange(i0, min(i0 + 1024, n), device=dev) // 32
+                cols = torch.arange(n, device=dev) // 32
+                kept_live += int((m & keep[rows][:, cols]).sum())
+        counts = dict(n=n, live=live, interacting=inter)
+        if keep is not None:
+            counts.update(tile_pairs=keep.numel(), tiles_kept=int(keep.sum()),
+                          kept_live=kept_live)
+            mask_bytes = cs.nbytes(cc.pair_bits.words, cc.pair_bits.tiles)
+            scanned = kept_live
+        else:
+            mask_bytes, scanned = n * n, live
+        io = es * (2 * x.numel() + n)
+        dname = str(dt)[6:]
+        out.append((f"K13 {dname}", lambda x=x, cc=cc, kw=kw: oc.contact_forces(
+            x, cc.quad_w, cc.pair_mask, cc.k, cc.r_max, **kw),
+            cs.bound(mask_bytes + io, 8.0 * scanned + 10.0 * inter, dt)[0],
+            counts))
+        out.append((f"K14 {dname}", lambda x=x, v=v, cc=cc, kw=kw:
+                    oc.contact_hvp(x, v, cc.quad_w, cc.pair_mask, cc.k,
+                                   cc.r_max, **kw),
+                    cs.bound(mask_bytes + io + es * v.numel(),
+                             8.0 * scanned + 28.0 * inter, dt)[0], counts))
+    return out
+
+
+def _state_b_file(tree):
+    return os.path.join(tree, "build", "k14_state_b.pt")
+
+
+def k14_k9_part(cs, dev, timed, tree, part):
+    import numpy as np
+    import torch
+    from tigar_tpu_torch.contact import PointContact
+    from tigar_tpu_torch.demos import reef_knot_contact as demo
+    from tigar_tpu_torch.ops import cuda_ext
+    if part == "reef knot":
+        torch.cuda.synchronize()
+        cuda_ext.reset_counts()
+        t0 = time.perf_counter()
+        U, hist, energy = demo.run(cs.RK_NEL, 1, mixed=True, mg=True,
+                                   device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_ext.counts()
+        by_key = cs.tally("reef_knot", ("contact_residual",
+                                        "contact_tangent"))
+        os.makedirs(os.path.dirname(_state_b_file(tree)), exist_ok=True)
+        torch.save(U.cpu(), _state_b_file(tree))
+        return {"reef_knot": dict(
+            wall_s=wall, residual_evaluations=len(hist[0]),
+            final_rel=hist[0][-1], energy=energy,
+            launches={k: launches[k] for k in ("contact_residual",
+                                                "contact_tangent")},
+            launches_by_key=by_key)}
+    if part in ("k14 (a)", "k14 (b)"):
+        sp = demo.build_spline(cs.RK_NEL, dev)
+        if part == "k14 (a)":
+            c = PointContact(sp, **cs.RK_ACTIVE)
+            rng = np.random.default_rng(0)
+            U = torch.as_tensor(rng.normal(size=sp.ndof) * 0.01, device=dev)
+            W = torch.as_tensor(rng.normal(size=sp.ndof), device=dev)
+        else:
+            c = PointContact(sp, **demo.CONTACT)
+            U = torch.load(_state_b_file(tree)).to(dev)
+            W = torch.as_tensor(np.random.default_rng(1).normal(
+                size=U.numel()), device=dev)
+        out = {}
+        for label, call, bound_ms, counts in _contact_calls(cs, c, U, W, dev):
+            call()
+            rec = timed(call, 50)
+            rec["kernels_device_ms"] = timed(call, 50, "contact_",
+                                             2 if hasattr(c, "pair_bits")
+                                             else 1)["device_ms"]
+            out[f"{part[4:]} {label}"] = dict(**rec, bound_ms=bound_ms,
+                                              **counts)
+        return {"k14": out}
+    # K9 on the three levels of the Nitsche solver
+    ns, _, _ = cs.build_two_patch(dev, coupling="nitsche")
+    levels = [("fine", ns.couplings[0], cs.mp_smooth_state(ns))]
+    for i, (spl, cl) in enumerate(zip(ns.mg_splines, ns.mg_couplings)):
+        g = torch.Generator().manual_seed(5 + i)
+        U = 0.01 * torch.randn(spl.ndof, generator=g, dtype=torch.float64)
+        levels.append((f"level {i + 1}", cl[0],
+                       spl.mask * U.to(ns.mask64.device)))
+    out = {}
+    for level, cpl, U64 in levels:
+        idx, pos_a, pos_b = cpl.support_positions()
+        for dt in (torch.float64, torch.float32):
+            c = cpl.astype(dt)
+            us = U64.to(dt)[idx.long()]
+            call = (lambda c=c, us=us, pa=pos_a, pb=pos_b:
+                    c.tangent_block_cuda(us, pa, pb, c.params))
+            call()
+            reps = 20 if dt == torch.float64 else 50
+            rec = timed(call, reps)
+            rec["kernel_device_ms"] = timed(
+                call, reps, "nitsche_tangent_kernel")["device_ms"]
+            m, es = idx.numel(), us.element_size()
+            out[f"{level} {str(dt)[6:]} nq={c.wq.numel()} m={m}"] = dict(
+                **rec, bound_ms=cs.bound(m * m * es, 0.0, dt)[0])
+    return {"k9": out}
+
+
+def k14_k9(cs, dev, timed, tree):
+    """Each part in a fresh process of its own, then the Nitsche solve."""
+    out = {"k14": {}, "k9": {}}
+    for p in K14_K9_PARTS:
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--what",
+             "k14_k9_part", "--part", p, "--tree", tree, "--label", p],
+            capture_output=True, text=True)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        if run.returncode or not lines:
+            raise SystemExit(f"part {p} failed:\n{run.stdout[-3000:]}\n"
+                             f"{run.stderr[-3000:]}")
+        got = json.loads(lines[-1])
+        for k in ("k14", "k9"):
+            out[k].update(got.pop(k, {}))
+        out.update({k: v for k, v in got.items() if k == "reef_knot"})
+    t0 = time.perf_counter()
+    ns, cpl, sizes = cs.build_two_patch(dev, coupling="nitsche")
+    *_, out["two_patch_nitsche"] = cs.two_patch_nitsche_main_path(
+        ns, cpl, sizes, time.perf_counter() - t0)
+    out["tallies"] = cs.TALLIES
+    return out
+
+
 WHAT = {"k12_k5": k12_k5, "shell": shell, "k10_k3": k10_k3,
         "k11_k16": k11_k16, "k11_k16_part": k11_k16_part, "k2_k4": k2_k4,
-        "k2_k4_part": k2_k4_part}
+        "k2_k4_part": k2_k4_part, "k14_k9": k14_k9,
+        "k14_k9_part": k14_k9_part}
 
 
 def main():
@@ -709,7 +879,7 @@ def main():
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None)
     ap.add_argument("--part", default=None,
-                    choices=K11_K16_PARTS + K2_K4_PARTS)
+                    choices=K11_K16_PARTS + K2_K4_PARTS + K14_K9_PARTS)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, HERE)
@@ -740,8 +910,9 @@ def main():
                else cs.device_ms(fn, reps, match, per_call)[0])
         return {"ms": cs.cuda_ms(fn, reps), "device_ms": dev}
 
-    extra = ((tree,) if args.what in ("k11_k16", "k2_k4") else
-             (tree, args.part) if args.what in ("k11_k16_part", "k2_k4_part")
+    extra = ((tree,) if args.what in ("k11_k16", "k2_k4", "k14_k9") else
+             (tree, args.part) if args.what in ("k11_k16_part", "k2_k4_part",
+                                                "k14_k9_part")
              else ())
     out.update(WHAT[args.what](cs, dev, timed, *extra))
     line = json.dumps(out)

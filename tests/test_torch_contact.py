@@ -184,6 +184,55 @@ def test_row_chunked_contact_matches_unchunked(chunked, what):
     assert rel(b, _eval("jax", jc, what, U, W, jnp.float64)) <= 1e-12
 
 
+def _unpack_bits(bits, n):
+    """The bool [n, n] mask that PairBits.words hold."""
+    b = (bits.words[:, :, None].long() >> torch.arange(32)) & 1
+    return b.permute(1, 0, 2).reshape(n, -1)[:, :n].bool()
+
+
+@pytest.mark.parametrize("fixture", ["active", "chunked"])
+def test_pair_bits_match_the_bool_mask(request, fixture):
+    """The kernels' bits (n = 36 and 100, not multiples of 32) hold the
+    bool mask bit for bit, zero beyond n, with tiles marking exactly the
+    tile pairs that hold a live pair; ``astype`` shares them."""
+    f = request.getfixturevalue(fixture)
+    c = f["tc"] if fixture == "active" else f[0]
+    n = c.X.shape[0]
+    bits = c.pair_bits
+    nt = -(-n // 32)
+    assert bits.words.shape == (nt, n) and bits.words.dtype == torch.int32
+    assert torch.equal(_unpack_bits(bits, n), c.pair_mask)
+    live = torch.zeros((nt * 32, nt * 32), dtype=torch.bool)
+    live[:n, :n] = c.pair_mask
+    tiles = live.view(nt, 32, nt, 32).any(3).any(1)
+    assert torch.equal(bits.tiles.bool(), tiles)
+    c32 = c.astype(F32)
+    assert c32.pair_bits.words is bits.words
+    assert c32.pair_bits.tiles is bits.tiles
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, F32])
+def test_culled_tile_pairs_hold_no_interacting_pair(chunked, seed, dtype):
+    """The plain twin of the kernels' cull (ops/contact.culled_tile_pairs)
+    at seeded states of the n = 100 strip: no skipped tile pair holds a
+    live pair closer than r_max (distances in float64), and the cull
+    skips some tile pairs and keeps others."""
+    c = chunked[0]
+    rng = np.random.default_rng(seed)
+    U = torch.as_tensor(rng.normal(size=c.spline.ndof) * 0.05)
+    x = c.positions(U)
+    culled = ops_contact.culled_tile_pairs(x.to(dtype), c.pair_bits,
+                                           c.r_max)
+    n, nt = x.shape[0], culled.shape[0]
+    r2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    hit = torch.zeros((nt * 32, nt * 32), dtype=torch.bool)
+    hit[:n, :n] = c.pair_mask & (r2 < c.r_max ** 2)
+    hit_tiles = hit.view(nt, 32, nt, 32).any(3).any(1)
+    assert not bool((culled & hit_tiles).any())
+    assert bool(culled.any()) and not bool(culled.all())
+
+
 def test_custom_potential_runs_the_plain_version_on_cpu(active):
     """A custom phi (here the default formula written out) runs the plain
     versions on CPU tensors and gives the default potential's results."""

@@ -443,18 +443,22 @@ def _nitsche(sp, nx, weights=(0.5, 0.5), energy=None, w_order=2):
         params={"E": E_mod, "nu": nu, "h": h_th})
 
 
+@pytest.mark.parametrize("dims", [(4, 4, 6), (8, 8, 12), (16, 16, 24)],
+                         ids=["nx4", "nx8", "nx16"])
 @pytest.mark.parametrize("weights", [(0.5, 0.5), (1.0, 0.0)],
                          ids=["symmetric", "one-sided"])
 @pytest.mark.parametrize("what", ["residual", "tangent_block"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_nitsche_interface_kernels(cuda, what, dtype, tol, weights):
+def test_nitsche_interface_kernels(cuda, what, dtype, tol, weights, dims):
     """K8/K9 against the plain versions (torch.func grad / hessian of the
-    Nitsche density) at a seeded state of the small two-patch plate."""
+    Nitsche density) at a seeded state of the small two-patch plate, on
+    its three levels (an odd number of interface points at nx 4 leaves
+    K9's last block a point short)."""
     from tigar_tpu_torch.interface import (iform_residual_ref,
                                            iform_tangent_block_ref)
-    sp, _ = _two_patch(cuda)
-    cp = _nitsche(sp, 4, weights).astype(dtype)
+    sp, _ = _two_patch(cuda, dims)
+    cp = _nitsche(sp, dims[0], weights).astype(dtype)
     U = _state(sp, seed=8, amp=0.01).to(dtype)
     name = {"residual": "nitsche_iface_residual",
             "tangent_block": "nitsche_iface_tangent"}[what]
@@ -1058,16 +1062,23 @@ def _contact(nel, device, **kw):
     return PointContact(sp, **(kw or dict(k=1e4, r_max=0.3, r_self=0.05)))
 
 
-# n = 36 and 1,089 are ragged against the 16-byte mask loads and the 32
-# lanes; n = 1,024 is a whole number of warps' tiles
-@pytest.mark.parametrize("nel", [4, 30, 31])
+# n = 36, 1,089 and 2,209 are ragged against the 32-point tiles; n = 1,024
+# is a whole number of them; "short" (r_max = 0.05) leaves the cull some
+# tile pairs to skip and some to keep
+CONTACT_RANGES = {"active": dict(k=1e4, r_max=0.3, r_self=0.05),
+                  "short": dict(k=1e4, r_max=0.05, r_self=0.02)}
+
+
+@pytest.mark.parametrize("nel,reach", [(4, "active"), (30, "active"),
+                                       (31, "active"), (45, "short")])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_contact_kernels_match_plain(cuda, nel, dtype):
+def test_contact_kernels_match_plain(cuda, nel, reach, dtype):
     """K13 and K14 against their plain versions (torch.func of the
-    row-blocked energy) at U = 0.01 N(0, 1) from numpy seed 0; f64 1e-12,
-    f32 1e-5 of the largest entry."""
+    row-blocked energy) at U = 0.01 N(0, 1) from numpy seed 0, with
+    interacting pairs across tile borders; f64 1e-12, f32 1e-5 of the
+    largest entry."""
     from tigar_tpu_torch.ops import contact as oc
-    c = _contact(nel, cuda)
+    c = _contact(nel, cuda, **CONTACT_RANGES[reach])
     c = c if dtype == torch.float64 else c.astype(dtype)
     ndof = c.spline.ndof
     rng = np.random.default_rng(0)
@@ -1076,6 +1087,15 @@ def test_contact_kernels_match_plain(cuda, nel, dtype):
     x = c.positions(U).contiguous()
     v = c._apply_P(W).contiguous()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
+    n = x.shape[0]
+    xd = x.double()
+    hit = c.pair_mask & (((xd[:, None] - xd[None]) ** 2).sum(-1)
+                         < c.r_max ** 2)
+    tile = torch.arange(n, device=cuda) // 32
+    assert bool((hit & (tile[:, None] != tile[None, :])).any())
+    if reach == "short":
+        culled = oc.culled_tile_pairs(x, c.pair_bits, c.r_max)
+        assert bool(culled.any()) and not bool(culled.all())
     cuda_ext.reset_counts()
     gk = oc.contact_forces(x, c.quad_w, c.pair_mask, c.k, c.r_max)
     hk = oc.contact_hvp(x, v, c.quad_w, c.pair_mask, c.k, c.r_max)
@@ -1090,6 +1110,31 @@ def test_contact_kernels_match_plain(cuda, nel, dtype):
     # the DoF-space residual and tangent action through the kernels
     assert float((c.residual(U).cpu() - c._apply_PT(gp).cpu()).abs().max()) \
         <= tol * float(c._apply_PT(gp).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_contact_kernels_all_culled(cuda, dtype):
+    """Every tile pair culled (n = 4,096 at U = 0: half a grid row a tile,
+    r_self above a tile's span, r_max below the grid spacing): K13 and K14
+    give exact zeros, through the bits PointContact keeps and through
+    bits built from the mask at the call."""
+    from tigar_tpu_torch.ops import contact as oc
+    c = _contact(62, cuda, k=1e4, r_max=0.01, r_self=0.6)
+    c = c if dtype == torch.float64 else c.astype(dtype)
+    U = torch.zeros(c.spline.ndof, dtype=dtype, device=cuda)
+    W = torch.as_tensor(np.random.default_rng(3).normal(size=c.spline.ndof),
+                        device=cuda).to(dtype)
+    x = c.positions(U).contiguous()
+    v = c._apply_P(W).contiguous()
+    assert bool(oc.culled_tile_pairs(x, c.pair_bits, c.r_max).all())
+    for bits in (c.pair_bits, None):
+        gk = oc.contact_forces(x, c.quad_w, c.pair_mask, c.k, c.r_max,
+                               bits=bits)
+        hk = oc.contact_hvp(x, v, c.quad_w, c.pair_mask, c.k, c.r_max,
+                            bits=bits)
+        assert float(gk.abs().max()) == 0.0 == float(hk.abs().max())
+    assert float(oc.contact_hvp_ref(x, v, c.quad_w, c.pair_mask, c.phi,
+                                    c.r_max).abs().max()) == 0.0
 
 
 def test_contact_kernels_refuse_what_they_cannot_take(cuda):

@@ -19,7 +19,7 @@ import torch
 
 from .ops.basis import eval_basis
 from .ops.contact import (contact_forces, contact_hvp, default_row_chunk,
-                          padded_pair_mask, pair_energy,
+                          padded_pair_mask, pair_bits, pair_energy,
                           pair_penalty_energy)
 
 __all__ = ["PointContact", "pair_penalty_energy"]
@@ -108,14 +108,16 @@ class PointContact:
         self.vals, self.X, self.w_ctrl, self.quad_w = (
             t(vals), t(X), t(w_ctrl), t(quad_w))
         self.pair_mask = padded_pair_mask(pair_mask, device)
+        self.pair_bits = pair_bits(self.pair_mask)
         self.row_chunk = default_row_chunk(self.X.shape[0], row_chunk)
         space = self.spline.space
         self._offsets = [int(space.offsets[f]) for f in range(self.nsd)]
         self._rows = torch.cat([self.conn + o for o in self._offsets])
 
     def astype(self, dtype):
-        """A copy with the floating state cast to ``dtype`` (the mask and
-        the indices shared): the f32 contact of the mixed-precision CG."""
+        """A copy with the floating state cast to ``dtype`` (the mask, its
+        bits and the indices shared): the f32 contact of the mixed-
+        precision CG."""
         obj = PointContact.__new__(PointContact)
         obj.__dict__.update(self.__dict__)
         for name in ("vals", "X", "w_ctrl", "quad_w"):
@@ -153,7 +155,8 @@ class PointContact:
         the pair forces (K13 on the card)."""
         g = contact_forces(self.positions(U).contiguous(), self.quad_w,
                            self.pair_mask, self.k, self.r_max,
-                           phi=self.custom_phi, row_chunk=self.row_chunk)
+                           phi=self.custom_phi, row_chunk=self.row_chunk,
+                           bits=self.pair_bits)
         return self._apply_PT(g)
 
     def tangent_action(self, U, W):
@@ -162,5 +165,6 @@ class PointContact:
         hv = contact_hvp(self.positions(U).contiguous(),
                          self._apply_P(W).contiguous(), self.quad_w,
                          self.pair_mask, self.k, self.r_max,
-                         phi=self.custom_phi, row_chunk=self.row_chunk)
+                         phi=self.custom_phi, row_chunk=self.row_chunk,
+                         bits=self.pair_bits)
         return self._apply_PT(hv)

@@ -354,8 +354,9 @@ torch::Tensor laplace_apply(torch::Tensor Ke, torch::Tensor connT,
   return r;
 }
 
-// K13 / K14 over the bool pair mask held with a padded row stride
-torch::Tensor contact_pairs(const torch::Tensor& mask, const torch::Tensor& x,
+// K13 / K14 over the pair mask's bits (ops/contact.py pair_bits)
+torch::Tensor contact_pairs(const torch::Tensor& words,
+                            const torch::Tensor& tiles, const torch::Tensor& x,
                             const std::optional<torch::Tensor>& v,
                             const torch::Tensor& w, double k, double r_max,
                             const char* name) {
@@ -367,50 +368,53 @@ torch::Tensor contact_pairs(const torch::Tensor& mask, const torch::Tensor& x,
   check(x, "x", dt, {n, 3});
   check(w, "w", dt, {n});
   if (v) check(*v, "v", dt, {n, 3});
-  TORCH_CHECK(mask.is_cuda() && mask.scalar_type() == torch::kBool,
-              name, ": the pair mask must be a bool CUDA tensor");
-  TORCH_CHECK(mask.dim() == 2 && mask.size(0) == n && mask.size(1) == n,
-              name, ": the pair mask must be [n, n]");
-  const int64_t ld = mask.stride(0);
-  TORCH_CHECK(mask.stride(1) == 1 && ld >= n && ld % 16 == 0 &&
-                  mask.storage_offset() == 0 &&
-                  reinterpret_cast<uintptr_t>(mask.data_ptr()) % 16 == 0 &&
-                  mask.storage().nbytes() >= (size_t)(n * ld),
-              name, ": the pair mask must be the [n, n] view of a zero-"
-              "padded [n, ld] bool buffer with ld a multiple of 16");
-  TORCH_CHECK(mask.device() == x.device() && w.device() == x.device() &&
+  const int64_t nt = (n + 31) / 32;
+  check(words, "words", torch::kInt, {nt, n});
+  check(tiles, "tiles", torch::kByte, {nt, nt});
+  TORCH_CHECK(words.device() == x.device() && tiles.device() == x.device() &&
+                  w.device() == x.device() &&
                   (!v || v->device() == x.device()),
               name, ": tensors on different devices");
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty_like(x);
+  const int nsplit = tigar::contact_splits((int)n);
+  auto boxes = torch::empty({std::max<int64_t>(nt, 1), 6}, x.options());
+  auto done = torch::empty({std::max(tigar::contact_groups((int)n), 1)},
+                           x.options().dtype(torch::kInt));
+  auto partial = torch::empty({nsplit > 1 ? nsplit * n * 3 : 1},
+                              x.options());
   auto stream = c10::cuda::getCurrentCUDAStream().stream();
-  const auto* mp = static_cast<const unsigned char*>(mask.data_ptr());
+  const auto* wp = static_cast<const unsigned*>(words.data_ptr());
+  const auto* tp = tiles.data_ptr<uint8_t>();
   cudaError_t err;
   if (dt == torch::kFloat) {
     using T = float;
-    err = tigar::contact_pairs_launch<T>((int)n, ld, mp, ptr<T>(x),
-                                         v ? ptr<T>(*v) : nullptr, ptr<T>(w),
-                                         k, r_max, out.data_ptr<T>(), stream);
+    err = tigar::contact_pairs_launch<T>(
+        (int)n, wp, tp, ptr<T>(x), v ? ptr<T>(*v) : nullptr, ptr<T>(w), k,
+        r_max, nsplit, boxes.data_ptr<T>(), partial.data_ptr<T>(),
+        done.data_ptr<int>(), out.data_ptr<T>(), stream);
   } else {
     using T = double;
-    err = tigar::contact_pairs_launch<T>((int)n, ld, mp, ptr<T>(x),
-                                         v ? ptr<T>(*v) : nullptr, ptr<T>(w),
-                                         k, r_max, out.data_ptr<T>(), stream);
+    err = tigar::contact_pairs_launch<T>(
+        (int)n, wp, tp, ptr<T>(x), v ? ptr<T>(*v) : nullptr, ptr<T>(w), k,
+        r_max, nsplit, boxes.data_ptr<T>(), partial.data_ptr<T>(),
+        done.data_ptr<int>(), out.data_ptr<T>(), stream);
   }
   check_launch(err, name);
   return out;
 }
 
-torch::Tensor contact_residual(torch::Tensor mask, torch::Tensor x,
-                               torch::Tensor w, double k, double r_max) {
-  return contact_pairs(mask, x, std::nullopt, w, k, r_max,
+torch::Tensor contact_residual(torch::Tensor words, torch::Tensor tiles,
+                               torch::Tensor x, torch::Tensor w, double k,
+                               double r_max) {
+  return contact_pairs(words, tiles, x, std::nullopt, w, k, r_max,
                        "contact_residual");
 }
 
-torch::Tensor contact_tangent(torch::Tensor mask, torch::Tensor x,
-                              torch::Tensor v, torch::Tensor w, double k,
-                              double r_max) {
-  return contact_pairs(mask, x, v, w, k, r_max, "contact_tangent");
+torch::Tensor contact_tangent(torch::Tensor words, torch::Tensor tiles,
+                              torch::Tensor x, torch::Tensor v,
+                              torch::Tensor w, double k, double r_max) {
+  return contact_pairs(words, tiles, x, v, w, k, r_max, "contact_tangent");
 }
 
 torch::Tensor stencil_apply(torch::Tensor S, torch::Tensor x,

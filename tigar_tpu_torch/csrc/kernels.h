@@ -3,6 +3,7 @@
 // after its launch.  Explicitly instantiated for float and double in the
 // .cu files; bindings.cpp is the only caller.
 #pragma once
+#include <algorithm>
 #include <cstddef>
 
 #include <cuda_runtime.h>
@@ -234,15 +235,23 @@ cudaError_t laplace_apply_launch(int nel, int nen, int ndof, const float* Ke,
                                  cudaStream_t stream);
 
 // K13 (v == nullptr) / K14: all-pairs penalty contact over n points x
-// [n][3] with weights w [n] and the bool mask [n][ld] (ld a multiple of 16,
-// columns n..ld-1 zero, 16-byte aligned): K13 writes the pair forces
-// out_i = k w_i sum_j live w_j (1 - r_max/r) d, K14 their tangent action
-// on the perturbations v [n][3]; every row written once.
+// [n][3] with weights w [n] and the mask as bits: words [nt][n] (nt =
+// ceil(n / 32); bit b of words[J][i] the pair (i, 32 J + b), zero beyond
+// n) and tiles [nt][nt] (nonzero where a pair of 32-point tiles holds a
+// live pair).  K13 writes the pair forces out_i = k w_i sum_j live w_j
+// (1 - r_max/r) d, K14 their tangent action on the perturbations v
+// [n][3]; every row written once.  Scratch: boxes [nt][6], done
+// [contact_groups(n)], partial [nsplit][n][3] (nsplit > 1; nsplit from
+// contact_splits(n)).
+int contact_splits(int n);
+int contact_groups(int n);
 template <typename T>
-cudaError_t contact_pairs_launch(int n, long long ld,
-                                 const unsigned char* mask, const T* x,
+cudaError_t contact_pairs_launch(int n, const unsigned* words,
+                                 const unsigned char* tiles, const T* x,
                                  const T* v, const T* w, double k,
-                                 double r_max, T* out, cudaStream_t stream);
+                                 double r_max, int nsplit, T* boxes,
+                                 T* partial, int* done, T* out,
+                                 cudaStream_t stream);
 
 // K15 / K16: one tensor-product field plan in dim = 2 or 3 directions and
 // where its coefficient columns sit.  Direction d: nel[d] elements, nq

@@ -20,12 +20,17 @@
 // tangents known to be zero are free.  The terms that are linear in the
 // jumps (F . dJv/dz, the Jacobian products of K9, the stabilization)
 // and the scatter are not counted, so the totals are below the need.
-// It also counts the kernels' own passes (pass1: one coefficient dual,
-// pass2: two nested) and checks the reverse-mode gradient, Jacobian and
-// Hessian against those passes on the same data.
+// It also counts the kernels' own passes and checks the reverse-mode
+// gradient, Jacobian and Hessian against them on the same data: K8's
+// (pass1: one coefficient dual) and the ones K9 ran before its symmetric
+// scheme (pass2: two nested, one a coefficient pair), and K9's own
+// (shell_nitsche.cuh pairing_grad: sym_grad, the gradient in one pass;
+// col, one pass a coefficient for its Hessian and flux Jacobian columns,
+// with the map from jet slots to coefficients).  per_point gives the old
+// and new K9 passes a point (54 pass1 + 756 pass2 against 54 col).
 //
 // Build and run (prints one JSON line, exits 1 if a check fails):
-//   g++ -std=c++17 -O1 -o nitsche_opcount nitsche_opcount.cpp
+//   g++ -std=c++17 -O0 -o nitsche_opcount nitsche_opcount.cpp
 //   ./nitsche_opcount
 #include <cmath>
 #include <cstdio>
@@ -462,6 +467,68 @@ int main() {
     side_flux(sp0, geo, sqrtJ, J2, kc0, T2, A2);
     n_pass2 = g_ops;
   }
+  // the kernels' scheme since the symmetric pass (shell_nitsche.cuh
+  // pairing_grad): the gradient in one pass, and one pass a coefficient
+  // for its column of the Hessian and of the flux Jacobian, each then
+  // mapped from the 42 jet slots to the side's 27 coefficients
+  Tn<0> J0t[3], JDt[3][2];
+  for (int f = 0; f < 3; ++f) {
+    J0t[f] = Tn<0>(D.J0[f]);
+    for (int d = 0; d < 2; ++d) JDt[f][d] = Tn<0>(D.JD[f][d]);
+  }
+  long long n_sym = 0, n_col = 0;
+  double err_gs = 0;
+  {
+    ZJets<Tn<0>> J, gb;
+    for (int j = 0; j < 42; ++j) jet_at(J, j) = Tn<0>(jet[j]);
+    Tn<0> Tm[3], Anu[3][2];
+    g_ops = 0;
+    pairing_grad(sp0, geo, sqrtJ, J, kc0, J0t, JDt, Tm, Anu, gb);
+    for (int i = 0; i < 27; ++i) {
+      Tn<0> acc;
+      bool first = true;
+      for (int j = 0; j < 42; ++j) {
+        int f, off;
+        slot(j, f, off);
+        if (f != i / 9) continue;
+        const Tn<0> t = jet_at(gb, j) * Tn<0>(D.rows[i][off]);
+        acc = first ? t : acc + t;
+        first = false;
+      }
+      err_gs = std::fmax(err_gs, std::fabs(acc.v - grad[i]));
+    }
+    n_sym = g_ops;
+  }
+  double err_js = 0, err_hs = 0;
+  for (int k = 0; k < 27; ++k) {
+    ZJets<Dual<Tn<0>, 1>> J, gb;
+    Tn<0> rk[15];
+    for (int o = 0; o < 15; ++o) rk[o] = Tn<0>(D.rows[k][o]);
+    seed1(sp0, k / 9, rk, J);
+    Dual<Tn<0>, 1> Tm[3], Anu[3][2];
+    g_ops = 0;
+    pairing_grad(sp0, geo, sqrtJ, J, kc0, J0t, JDt, Tm, Anu, gb);
+    for (int i = 0; i < 27; ++i) {
+      Tn<0> acc;
+      bool first = true;
+      for (int j = 0; j < 42; ++j) {
+        int f, off;
+        slot(j, f, off);
+        if (f != i / 9) continue;
+        const Tn<0> t = jet_at(gb, j).d[0] * Tn<0>(D.rows[i][off]);
+        acc = first ? t : acc + t;
+        first = false;
+      }
+      err_hs = std::fmax(err_hs, std::fabs(acc.v - H[i][k]));
+    }
+    if (k == 0) n_col = g_ops;
+    for (int f = 0; f < 3; ++f) {
+      err_js = std::fmax(err_js, std::fabs(Tm[f].d[0].v - flux1[f].d[k]));
+      for (int d = 0; d < 2; ++d)
+        err_js = std::fmax(err_js, std::fabs(Anu[f][d].d[0].v -
+                                             flux1[3 + 2 * f + d].d[k]));
+    }
+  }
   double err_g = 0, err_j = 0, err_h = 0, scale_g = 0, scale_j = 0,
          scale_h = 0;
   for (int k = 0; k < 27; ++k) {
@@ -499,14 +566,22 @@ int main() {
     }
   }
   const double rg = err_g / scale_g, rj = err_j / scale_j,
-               rh = err_h / scale_h;
-  const bool ok = rg < 1e-12 && rj < 1e-12 && rh < 1e-11;
+               rh = err_h / scale_h, rgs = err_gs / scale_g,
+               rjs = err_js / scale_j, rhs = err_hs / scale_h;
+  const bool ok = rg < 1e-12 && rj < 1e-12 && rh < 1e-11 && rgs < 1e-12 &&
+                  rjs < 1e-12 && rhs < 1e-11;
+  // a point: two sides of 27 coefficients; the passes alone
+  const long long old_passes = 54 * n_pass1 + 756 * n_pass2;
+  const long long new_passes = 54 * n_col;
   std::printf(
       "{\"per_side\": {\"geom\": %lld, \"jets\": %lld, \"primal\": %lld, "
-      "\"grad\": %lld, \"hess\": %lld, \"pass1\": %lld, \"pass2\": %lld}, "
+      "\"grad\": %lld, \"hess\": %lld, \"pass1\": %lld, \"pass2\": %lld, "
+      "\"sym_grad\": %lld, \"col\": %lld}, "
+      "\"per_point\": {\"old_passes\": %lld, \"new_passes\": %lld}, "
       "\"rel_err\": {\"grad\": %.3e, \"jacobian\": %.3e, \"hessian\": "
+      "%.3e, \"sym_grad\": %.3e, \"col_jacobian\": %.3e, \"col_hessian\": "
       "%.3e}, \"ok\": %s}\n",
-      n_geom, n_jets, n_primal, n_grad, n_hess, n_pass1, n_pass2, rg, rj, rh,
-      ok ? "true" : "false");
+      n_geom, n_jets, n_primal, n_grad, n_hess, n_pass1, n_pass2, n_sym, n_col,
+      old_passes, new_passes, rg, rj, rh, rgs, rjs, rhs, ok ? "true" : "false");
   return ok ? 0 : 1;
 }

@@ -39,15 +39,19 @@
 // K8: one block per quadrature point, one thread per local coefficient:
 //     the flux with a one-coefficient dual gives dF_s/dz_i . Jv_s, then
 //     the residual entry, atomically added into r (54 atomics a point).
-// K9: one block per quadrature point: dF_s/dz_i for the 54 coefficients
-//     as in K8, d2(F_s . Jv_s) for the 2 x 378 coefficient pairs of one
-//     side (two nested coefficient duals), then each of the 54 x 54
-//     entries atomically added into K (zeroed by the wrapper).
+// K9: TN_POINTS points a block, one thread per point and local
+//     coefficient j: one pass of pairing_grad (shell_nitsche.cuh) with j
+//     seeded gives dF_s/dz_j and column j of d2(F_s . Jv_s) at fixed Jv_s
+//     (the symmetry of W's Hessian turns the gradient of the pairing into
+//     one forward pass, and its derivative along z_j into a column), then
+//     the thread adds column j of the 54 x 54 entries atomically into K
+//     (zeroed by the wrapper).
 // Bound: the function needs 1.8e4 (K8) and 6.3e5 (K9) operations a point
 // (nitsche_opcount.cpp: reverse mode, and forward over reverse), so the
 // bytes bind (K is 22.6 / 45.2 MB in f32 / f64 at the 768 fine points).
-// These passes do 5.4e5 and 2.4e7 a point, 31x and 38x that need; a
-// reverse sweep over the flux is the way down.
+// K8's passes do 5.4e5 a point, 31x that need; K9's 54 column passes
+// 2.0e6, 3.2x it (the passes of one and two coefficient duals they
+// replaced did 2.4e7).
 
 #include "kernels.h"
 #include "shell_nitsche.cuh"
@@ -60,7 +64,6 @@ using namespace nitsche;
 
 constexpr int NCOEF = 54;   // 2 sides x 3 fields x 9 functions
 constexpr int NROW = 15;    // R0, R1 [2], R2 [2][2], R3 [2][2][2]
-constexpr int NPAIR = 378;  // 27 x 28 / 2 coefficient pairs of one side
 
 // what both kernels stage per point in shared memory
 template <typename S>
@@ -89,13 +92,14 @@ NitscheConstS<S> nitsche_consts(const double* c) {
           {S(c[4]), S(c[5]), S(c[6]), S(c[7])}};
 }
 
-// Stage coefficients, rows, geometry, jets and jumps of point q.  Every
-// phase is a loop over virtual thread ids separated by __syncthreads, so
-// any block size is correct.
+// Stage coefficients, rows, geometry, jets and jumps of point q with the
+// tn threads tid = 0 .. tn - 1 of the point (every thread of the block
+// calls it: the phases are strided loops between __syncthreads, so any
+// count is correct).
 template <typename S>
 __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
-                           PointData<S>& P) {
-  for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
+                           PointData<S>& P, int tid, int tn) {
+  for (int t = tid; t < NCOEF; t += tn) {
     const int s = t / 27;
     const size_t row = (size_t)q * 27 + t % 27;
     const NitscheSide<S>& sd = sides[s];
@@ -109,7 +113,7 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
 #pragma unroll
     for (int d = 0; d < 8; ++d) P.rows[t][7 + d] = sd.R3[row * 8 + d];
   }
-  for (int t = threadIdx.x; t < 100; t += blockDim.x) {
+  for (int t = tid; t < 100; t += tn) {
     const int s = t / 50, i = t % 50;
     const NitscheSide<S>& sd = sides[s];
     SidePoint<S>& sp = P.side[s];
@@ -127,7 +131,7 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
   __syncthreads();
   // jets: per side val 3, g 6, h 12, t3 24 slots; then the two sides'
   // reference geometry
-  for (int t = threadIdx.x; t < 92; t += blockDim.x) {
+  for (int t = tid; t < 92; t += tn) {
     if (t >= 90) {
       shift_reference(P.side[t - 90], P.geo[t - 90], P.sqrtJ[t - 90]);
       continue;
@@ -154,7 +158,7 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
     *dst = acc;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < 12 + NCOEF * 3; t += blockDim.x) {
+  for (int t = tid; t < 12 + NCOEF * 3; t += tn) {
     if (t < 3) {
       P.J0[t] = P.side[0].val[t] - P.side[1].val[t];
     } else if (t < 12) {
@@ -174,7 +178,7 @@ __device__ void load_point(int q, const NitscheSide<S>* sides, const S* x,
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < 12 + NCOEF * 4; t += blockDim.x) {
+  for (int t = tid; t < 12 + NCOEF * 4; t += tn) {
     if (t < 12) {
       const int s = t / 6, f = (t % 6) / 2, d = t % 2;
       const SidePoint<S>& sp = P.side[s];
@@ -201,7 +205,7 @@ nitsche_residual_kernel(NitscheSide<S> sa, NitscheSide<S> sb,
   __shared__ S flux[2][9];
   const int q = blockIdx.x;
   const NitscheSide<S> sides[2] = {sa, sb};
-  load_point(q, sides, U, P);
+  load_point(q, sides, U, P, threadIdx.x, blockDim.x);
   for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
     const int s = t / 27, f = (t % 27) / 9;
     ZJets<Dual<S, 1>> J;
@@ -248,84 +252,110 @@ nitsche_residual_kernel(NitscheSide<S> sa, NitscheSide<S> sb,
   }
 }
 
-constexpr int TN_THREADS = 256;
+// K9 lays out TN_POINTS points a block, one thread TN_COLS local
+// coefficients of one side (27 / TN_COLS threads a side)
+constexpr int TN_POINTS = 2;
+constexpr int TN_COLS = 1;
+constexpr int TN_THREADS = NCOEF / TN_COLS * TN_POINTS;
 
-template <typename S>
-__global__ void __launch_bounds__(TN_THREADS)
-nitsche_tangent_kernel(int m, NitscheSide<S> sa, NitscheSide<S> sb,
+template <typename S, int NP, int T>
+__global__ void __launch_bounds__(NCOEF / T * NP)
+nitsche_tangent_kernel(int nq, int m, NitscheSide<S> sa, NitscheSide<S> sb,
                        const S* __restrict__ wq, const S* __restrict__ surfJ,
                        const S* __restrict__ u_sub, NitscheConstS<S> c,
                        S* __restrict__ K) {
-  __shared__ PointData<S> P;
-  __shared__ S Jf[NCOEF][9];
-  __shared__ S Hs[2][27][27];
-  const int q = blockIdx.x;
+  constexpr int TPP = NCOEF / T;   // threads a point
+  static_assert(27 % T == 0, "a thread's coefficients lie on one side");
+  __shared__ PointData<S> PP[NP];
+  __shared__ S Jf[NP][NCOEF][9];
+  const int p = threadIdx.x / TPP, u = threadIdx.x % TPP;
+  const int q = blockIdx.x * NP + p;
   const NitscheSide<S> sides[2] = {sa, sb};
-  load_point(q, sides, u_sub, P);
-  // dF_s/dz_i for every coefficient
-  for (int t = threadIdx.x; t < NCOEF; t += blockDim.x) {
-    const int s = t / 27, f = (t % 27) / 9;
-    ZJets<Dual<S, 1>> J;
-    seed1(P.side[s], f, P.rows[t], J);
-    Dual<S, 1> Tm[3], Anu[3][2];
-    side_flux(P.side[s], P.geo[s], P.sqrtJ[s], J, c.k, Tm, Anu);
+  PointData<S>& P = PP[p];
+  // a block's missing points stage the last one again and write nothing
+  load_point(min(q, nq - 1), sides, u_sub, P, u, TPP);
+  // coefficients j0 .. j0 + T - 1's pass: their columns of the flux
+  // Jacobian and of their side's Hessian of F_s . Jv_s at fixed Jv_s
+  const int j0 = u * T, sj = j0 / 27;
+  S Hc[T][27];
+  {
+    ZJets<Dual<S, T>> J, gb;
+    seedT<S, T>(P.side[sj], j0, P.rows, J);
+    Dual<S, T> Tm[3], Anu[3][2];
+    pairing_grad(P.side[sj], P.geo[sj], P.sqrtJ[sj], J, c.k, P.J0, P.JD[sj],
+                 Tm, Anu, gb);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Jf[t][i] = Tm[i].d[0];
+    for (int t = 0; t < T; ++t) {
 #pragma unroll
-      for (int d = 0; d < 2; ++d) Jf[t][fidx_anu(i, d)] = Anu[i][d].d[0];
+      for (int i = 0; i < 3; ++i) {
+        Jf[p][j0 + t][i] = Tm[i].d[t];
+#pragma unroll
+        for (int d = 0; d < 2; ++d)
+          Jf[p][j0 + t][fidx_anu(i, d)] = Anu[i][d].d[t];
+      }
+      // the 14 slot adjoints' derivatives of each field, in row order
+      S gf[3][14];
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          gf[f][a] = gb.g[f][a].d[t];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            gf[f][2 + a * 2 + e] = gb.h[f][a][e].d[t];
+#pragma unroll
+            for (int g = 0; g < 2; ++g)
+              gf[f][6 + a * 4 + e * 2 + g] = gb.t3[f][a][e][g].d[t];
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        const S* rk = P.rows[sj * 27 + k];
+        S acc = S(0);
+#pragma unroll
+        for (int o = 0; o < 14; ++o) acc += rk[1 + o] * gf[k / 9][o];
+        Hc[t][k] = acc;
+      }
     }
-  }
-  // d2(F_s . Jv_s)/dz_k dz_l at fixed Jv_s for the pairs k <= l of a side
-  for (int p = threadIdx.x; p < 2 * NPAIR; p += blockDim.x) {
-    const int s = p / NPAIR;
-    int k = 0, rem = p % NPAIR;
-    while (rem >= 27 - k) {
-      rem -= 27 - k;
-      ++k;
-    }
-    const int l = k + rem;
-    ZJets<Dual<Dual<S, 1>, 1>> J;
-    seed2(P.side[s], k / 9, P.rows[s * 27 + k], l / 9, P.rows[s * 27 + l], J);
-    Dual<Dual<S, 1>, 1> Tm[3], Anu[3][2];
-    side_flux(P.side[s], P.geo[s], P.sqrtJ[s], J, c.k, Tm, Anu);
-    S acc = S(0);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      acc += Tm[i].d[0].d[0] * P.J0[i];
-#pragma unroll
-      for (int d = 0; d < 2; ++d) acc += Anu[i][d].d[0].d[0] * P.JD[s][i][d];
-    }
-    Hs[s][k][l] = acc;
-    Hs[s][l][k] = acc;
   }
   __syncthreads();
+  if (q >= nq) return;
   const S w = wq[q], isj = S(1) / surfJ[q];
-  for (int e = threadIdx.x; e < NCOEF * NCOEF; e += blockDim.x) {
-    const int i = e / NCOEF, j = e % NCOEF;
-    const int si = i / 27, fi = (i % 27) / 9, sj = j / 27, fj = (j % 27) / 9;
-    const S gi = si == 0 ? S(1) : S(-1), gj = sj == 0 ? S(1) : S(-1);
-    const S R0i = P.rows[i][0], R0j = P.rows[j][0];
-    S pair = S(0);
+  const S gj = sj == 0 ? S(1) : S(-1);
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      S acc = S(0);
-      if (si == s)
-        acc += gj * (Jf[i][fj] * R0j + Jf[i][fidx_anu(fj, 0)] * P.phidf[j][s][0] +
-                     Jf[i][fidx_anu(fj, 1)] * P.phidf[j][s][1]);
-      if (sj == s)
-        acc += gi * (Jf[j][fi] * R0i + Jf[j][fidx_anu(fi, 0)] * P.phidf[i][s][0] +
-                     Jf[j][fidx_anu(fi, 1)] * P.phidf[i][s][1]);
-      if (si == s && sj == s) acc += Hs[s][i % 27][j % 27];
-      pair += (s == 0 ? c.wa : -c.wb) * acc;
+  for (int t = 0; t < T; ++t) {
+    const int j = j0 + t, fj = (j % 27) / 9;
+    const S R0j = P.rows[j][0];
+    const int colj = P.col[j];
+#pragma unroll
+    for (int i = 0; i < NCOEF; ++i) {
+      const int si = i / 27, fi = (i % 27) / 9;
+      const S gi = si == 0 ? S(1) : S(-1);
+      const S R0i = P.rows[i][0];
+      S pair = S(0);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        S acc = S(0);
+        if (si == s)
+          acc += gj * (Jf[p][i][fj] * R0j +
+                       Jf[p][i][fidx_anu(fj, 0)] * P.phidf[j][s][0] +
+                       Jf[p][i][fidx_anu(fj, 1)] * P.phidf[j][s][1]);
+        if (sj == s)
+          acc += gi * (Jf[p][j][fi] * R0i +
+                       Jf[p][j][fidx_anu(fi, 0)] * P.phidf[i][s][0] +
+                       Jf[p][j][fidx_anu(fi, 1)] * P.phidf[i][s][1]);
+        if (si == s && sj == s) acc += Hc[t][i % 27];
+        pair += (s == 0 ? c.wa : -c.wb) * acc;
+      }
+      S stab = S(0);
+      if (fi == fj)
+        stab = gi * gj * (c.beta_d * R0i * R0j +
+                          c.beta_r * (P.phi[i][0] * P.phi[j][0] +
+                                      P.phi[i][1] * P.phi[j][1] +
+                                      P.phi[i][2] * P.phi[j][2]));
+      atomicAdd(K + (size_t)P.col[i] * m + colj, w * (stab - pair * isj));
     }
-    S stab = S(0);
-    if (fi == fj)
-      stab = gi * gj * (c.beta_d * R0i * R0j +
-                        c.beta_r * (P.phi[i][0] * P.phi[j][0] +
-                                    P.phi[i][1] * P.phi[j][1] +
-                                    P.phi[i][2] * P.phi[j][2]));
-    atomicAdd(K + (size_t)P.col[i] * m + P.col[j], w * (stab - pair * isj));
   }
 }
 
@@ -350,8 +380,9 @@ cudaError_t nitsche_iface_tangent_launch(int nq, int m, NitscheSide<T> sa,
                                          const double* consts, T* K,
                                          cudaStream_t stream) {
   if (nq == 0) return cudaSuccess;
-  nitsche_tangent_kernel<T><<<nq, TN_THREADS, 0, stream>>>(
-      m, sa, sb, wq, surfJ, u_sub, nitsche_consts<T>(consts), K);
+  nitsche_tangent_kernel<T, TN_POINTS, TN_COLS>
+      <<<(nq + TN_POINTS - 1) / TN_POINTS, TN_THREADS, 0, stream>>>(
+          nq, m, sa, sb, wq, surfJ, u_sub, nitsche_consts<T>(consts), K);
   return cudaGetLastError();
 }
 

@@ -143,7 +143,9 @@ __device__ __forceinline__ void seed1(const SidePoint<S>& sp, int fk,
 }
 
 // jets with coefficient k on the inner and coefficient l on the outer
-// dual level (the jets are linear: no second-order seed)
+// dual level (the jets are linear: no second-order seed): the pass of a
+// coefficient pair that nitsche_opcount.cpp counts and checks as the
+// scheme pairing_grad's columns replaced')
 template <typename S>
 __device__ __forceinline__ void seed2(const SidePoint<S>& sp, int fk,
                                       const S* rk, int fl, const S* rl,
@@ -171,6 +173,41 @@ __device__ __forceinline__ void seed2(const SidePoint<S>& sp, int fk,
         for (int e = 0; e < 2; ++e) {
           const int o3 = 7 + a * 4 + c * 2 + e;
           J.t3[f][a][c][e] = mk(sp.t3[f][a][c][e], onk * rk[o3], onl * rl[o3]);
+        }
+      }
+    }
+  }
+}
+
+// jets with the rows of coefficients j0 .. j0 + T - 1 of one side (rows
+// [54][15], field (j % 27) / 9) on the T dual directions
+template <typename S, int T>
+__device__ __forceinline__ void seedT(const SidePoint<S>& sp, int j0,
+                                      const S (*rows)[15],
+                                      ZJets<Dual<S, T>>& J) {
+  int fk[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) fk[t] = ((j0 + t) % 27) / 9;
+  for (int f = 0; f < 3; ++f) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      J.g[f][a] = Dual<S, T>(sp.g[f][a]);
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+        J.g[f][a].d[t] = fk[t] == f ? rows[j0 + t][1 + a] : S(0);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        J.h[f][a][c] = Dual<S, T>(sp.h[f][a][c]);
+#pragma unroll
+        for (int t = 0; t < T; ++t)
+          J.h[f][a][c].d[t] = fk[t] == f ? rows[j0 + t][3 + a * 2 + c] : S(0);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          J.t3[f][a][c][e] = Dual<S, T>(sp.t3[f][a][c][e]);
+#pragma unroll
+          for (int t = 0; t < T; ++t)
+            J.t3[f][a][c][e].d[t] =
+                fk[t] == f ? rows[j0 + t][7 + a * 4 + c * 2 + e] : S(0);
         }
       }
     }
@@ -247,6 +284,205 @@ __device__ void side_flux(const SidePoint<S>& sp,
 
 // flux index: 0..2 the T - div A of field f, 3 + 2 f + d the A nu [f][d]
 __device__ __forceinline__ int fidx_anu(int f, int d) { return 3 + 2 * f + d; }
+
+// A value with first-order parts along the two shift directions (s) and
+// three jet directions (l), and the two second-order parts s[g] l[1 + g]:
+// the truncated polynomials in s0, s1, l0, l1, l2 that keep of the
+// second-order terms only s0 l1 and s1 l2 (an ideal's quotient, so the
+// arithmetic is exact on what it keeps).
+template <typename S>
+struct Hyp {
+  S v, s[2], l[3], sl[2];
+  __device__ __forceinline__ Hyp() {}
+  __device__ __forceinline__ Hyp(S x) : v(x) { zero(); }
+  template <typename A, typename std::enable_if<std::is_arithmetic<A>::value,
+                                                int>::type = 0>
+  __device__ __forceinline__ explicit Hyp(A x) : v(S(x)) { zero(); }
+  __device__ __forceinline__ void zero() {
+    s[0] = s[1] = sl[0] = sl[1] = S(0);
+    l[0] = l[1] = l[2] = S(0);
+  }
+  friend __device__ __forceinline__ Hyp operator+(const Hyp& a, const Hyp& b) {
+    Hyp r;
+    r.v = a.v + b.v;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      r.s[g] = a.s[g] + b.s[g];
+      r.sl[g] = a.sl[g] + b.sl[g];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = a.l[k] + b.l[k];
+    return r;
+  }
+  friend __device__ __forceinline__ Hyp operator-(const Hyp& a) {
+    Hyp r;
+    r.v = -a.v;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      r.s[g] = -a.s[g];
+      r.sl[g] = -a.sl[g];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = -a.l[k];
+    return r;
+  }
+  friend __device__ __forceinline__ Hyp operator-(const Hyp& a, const Hyp& b) {
+    Hyp r;
+    r.v = a.v - b.v;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      r.s[g] = a.s[g] - b.s[g];
+      r.sl[g] = a.sl[g] - b.sl[g];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = a.l[k] - b.l[k];
+    return r;
+  }
+  friend __device__ __forceinline__ Hyp operator*(const Hyp& a, const Hyp& b) {
+    Hyp r;
+    r.v = a.v * b.v;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      r.s[g] = a.s[g] * b.v + a.v * b.s[g];
+      r.sl[g] = a.sl[g] * b.v + a.v * b.sl[g] + a.s[g] * b.l[1 + g] +
+                a.l[1 + g] * b.s[g];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = a.l[k] * b.v + a.v * b.l[k];
+    return r;
+  }
+  friend __device__ __forceinline__ Hyp operator/(const Hyp& a, const Hyp& b) {
+    Hyp r;
+    const S inv = S(1) / b.v;
+    r.v = a.v * inv;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) r.s[g] = (a.s[g] - r.v * b.s[g]) * inv;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = (a.l[k] - r.v * b.l[k]) * inv;
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      r.sl[g] = (a.sl[g] - r.v * b.sl[g] - r.s[g] * b.l[1 + g] -
+                 r.l[1 + g] * b.s[g]) * inv;
+    return r;
+  }
+  friend __device__ __forceinline__ Hyp sqrt(const Hyp& a) {
+    Hyp r;
+    r.v = sqrt(a.v);
+    const S h = S(0.5) / r.v;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) r.s[g] = a.s[g] * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.l[k] = a.l[k] * h;
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      r.sl[g] = (a.sl[g] - S(2) * (r.s[g] * r.l[1 + g])) * h;
+    return r;
+  }
+};
+
+// The side pairing g = F . Jv (Jv = (J0 [3], JD [3][2]) held fixed, F
+// the side flux of side_flux) and its gradient over the side's 42 jet
+// slots, in one pass of svk_adjoint over Hyp values, in the coefficient-
+// dual type Z (Z = S: the gradient; Z a one-coefficient dual seeded by
+// seed1: the flux's and the gradient's derivatives along that
+// coefficient, i.e. a column of the flux Jacobian and of the Hessian).
+//
+// F is linear in the jet gradient Phi = sqrtJ (Fg, Fh) of W at the shifted
+// jets x(s) = (DF + g + s_e (d2F + h)[e], d2F + h + s_e (d3F + t3)[e]):
+// g = <y0, Phi(0)> + sum_e <y_e, d_e Phi>.  The transpose of the shift-
+// extended map x -> grad W(x, ref(s)) is, grad W's Jacobian D being
+// symmetric at every s,  xbar.v = D ybar.v + sum_e (d_e D) ybar.d_e,
+// xbar.d_e = D ybar.d_e: the l parts of a forward pass seeded with the
+// (s-constant) directions ybar.v, ybar.d_0, ybar.d_1 (l0, l1, l2): l0 +
+// sl0 + sl1 gives xbar.v, l[1 + e] gives xbar.d_e.  The transpose of the
+// shift map then gives the slots' adjoints (gb): gbar = xbar.v[G], hbar =
+// xbar.v[H] + xbar.d_c[G], t3bar = xbar.d_e[H].
+template <typename Z, typename S>
+__device__ void pairing_grad(const SidePoint<S>& sp,
+                             const ShellRef<Dual<S, 2>>& geo,
+                             const Dual<S, 2>& geo_sqrtJ, const ZJets<Z>& J,
+                             const ShellConst<S>& kc, const S J0[3],
+                             const S JD[3][2], Z Tm[3], Z Anu[3][2],
+                             ZJets<Z>& gb) {
+  using X = Hyp<Z>;
+  ShellRef<X> ref;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const Dual<S, 2>* src[3] = {&geo.a[c][d], &geo.b[c][d], &geo.ea[c][d]};
+      X* dst[3] = {&ref.a[c][d], &ref.b[c][d], &ref.ea[c][d]};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        *dst[k] = X(Z(src[k]->v));
+        dst[k]->s[0] = Z(src[k]->d[0]);
+        dst[k]->s[1] = Z(src[k]->d[1]);
+      }
+    }
+  const S sj = geo_sqrtJ.v;
+  X G[3][2], H[3][2][2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      G[i][a] = X(Z(sp.DF[i][a]) + J.g[i][a]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        G[i][a].s[e] = Z(sp.d2F[i][a][e]) + J.h[i][a][e];
+      // ybar on Fg: d g / d B.v = J0 nu, times sqrtJ
+      G[i][a].l[0] = Z(J0[i] * sp.nu[a] * sj);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        X& h = H[i][a][c];
+        h = X(Z(sp.d2F[i][a][c]) + J.h[i][a][c]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          h.s[e] = Z(sp.d3F[i][a][c][e]) + J.t3[i][a][c][e];
+        // ybar on Fh: d g / d A.v = JD nu, d g / d (d_c A) = -J0 nu,
+        // through the shift-dual product with sqrtJ
+        h.l[0] = Z(sp.nu[a] * (JD[i][c] * sj - J0[i] * geo_sqrtJ.d[c]));
+        h.l[1 + c] = Z(-(J0[i] * sp.nu[a] * sj));
+      }
+    }
+  const ShellConst<X> kx = {X(Z(kc.lam)), X(Z(kc.two_mu)), X(Z(kc.h)),
+                            X(Z(kc.h3_12))};
+  X Fg[3][2], Fh[3][2][2];
+  svk_adjoint<X, X>(G, H, ref, kx, Fg, Fh);
+  const Z nu0 = Z(sp.nu[0]), nu1 = Z(sp.nu[1]);
+  const Z s0 = Z(sj), s1 = Z(geo_sqrtJ.d[0]), s2 = Z(geo_sqrtJ.d[1]);
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    // the flux as side_flux: B = sqrtJ Fg, A = sqrtJ Fh (shift duals)
+    const Z T = s0 * (Fg[f][0].v * nu0 + Fg[f][1].v * nu1);
+    Z divA = Z(S(0));
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const Z nn = n == 0 ? nu0 : nu1;
+      Z dA = Z(S(0));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const X& q = Fh[f][n][e];
+        dA = dA + (s0 * q.s[e] + (e == 0 ? s1 : s2) * q.v);
+      }
+      divA = divA + dA * nn;
+    }
+    Tm[f] = T - divA;
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+      Anu[f][d] = s0 * (Fh[f][0][d].v * nu0 + Fh[f][1][d].v * nu1);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      gb.g[f][a] = Fg[f][a].l[0] + Fg[f][a].sl[0] + Fg[f][a].sl[1];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const X& q = Fh[f][a][c];
+        gb.h[f][a][c] = q.l[0] + q.sl[0] + q.sl[1] + Fg[f][a].l[1 + c];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) gb.t3[f][a][c][e] = q.l[1 + e];
+      }
+    }
+  }
+}
 
 }  // namespace nitsche
 }  // namespace tigar

@@ -874,7 +874,9 @@ class EnergyNitscheCoupling(InterfaceForm):
         return r
 
     def tangent_block_cuda(self, u_sub, pos_a, pos_b, params):
-        """Kernel K9: one block per interface quadrature point."""
+        """Kernel K9: one thread per interface quadrature point and local
+        coefficient (its columns of the point's block); launches tallied
+        by (type, points)."""
         sa, sb, consts = self._kernel_args(u_sub, params)
         if u_sub.shape != (len(self.support),):
             raise ValueError(f"u_sub shape {tuple(u_sub.shape)}, support "
@@ -889,5 +891,6 @@ class EnergyNitscheCoupling(InterfaceForm):
             sa, sb, pos_a.contiguous(), pos_b.contiguous(),
             self.wq.contiguous(), self.surfJ.contiguous(),
             u_sub.contiguous(), consts)
-        cuda_ext.count("nitsche_iface_tangent")
+        cuda_ext.count("nitsche_iface_tangent",
+                       (cuda_ext.short_dtype(u_sub.dtype), nq))
         return K

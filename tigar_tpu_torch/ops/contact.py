@@ -11,13 +11,18 @@ r < r_max.  The energy is 1/2 sum_ij live_ij w_i w_j phi(|x_i - x_j|).
 Kernels K13 (``contact_forces``) and K14 (``contact_hvp``),
 csrc/contact_pairs.cu, carry the pair loop on CUDA tensors; they take the
 mask as the [n, n] view of a zero-padded [n, ld] buffer with ld a multiple
-of 16 (``padded_pair_mask``), nsd = 3 and the default potential.  The
-plain versions, ``contact_forces_ref`` and ``contact_hvp_ref``, are
-torch.func derivatives of the row-blocked energy, for any potential; CPU
-tensors go to them.  A custom potential on CUDA tensors raises.
+of 16 (``padded_pair_mask``) and read its bits (``pair_bits``, built once
+by ``PointContact``, else at each call), nsd = 3 and the default
+potential.  The kernels skip each pair of 32-point tiles that
+``culled_tile_pairs`` names.  The plain versions, ``contact_forces_ref``
+and ``contact_hvp_ref``, are torch.func derivatives of the row-blocked
+energy, for any potential; CPU tensors go to them.  A custom potential on
+CUDA tensors raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +52,69 @@ def padded_pair_mask(mask, device):
     buf = torch.zeros((n, ld), dtype=torch.bool, device=device)
     buf[:, :n] = mask.to(device)
     return buf[:, :n]
+
+
+TILE = 32           # points a tile of the kernels' bits and culling
+
+
+class PairBits(NamedTuple):
+    """The pair mask as the kernels read it: ``words`` int32 [nt, n] (nt =
+    ceil(n / 32)), bit b of words[J, i] the pair (i, 32 J + b), zero
+    beyond n; ``tiles`` uint8 [nt, nt], 1 where a pair of tiles holds a
+    live pair."""
+    words: torch.Tensor
+    tiles: torch.Tensor
+
+
+def pair_bits(pair_mask, rows=1024):
+    """``PairBits`` of a symmetric bool mask [n, n] (any strides), on its
+    device, built ``rows`` rows at a time."""
+    n = pair_mask.shape[0]
+    nt = -(-n // TILE)
+    dev = pair_mask.device
+    words = torch.empty((nt, n), dtype=torch.int32, device=dev)
+    weights = 2 ** torch.arange(TILE, dtype=torch.int64, device=dev)
+    for i0 in range(0, n, rows):
+        m = torch.zeros((min(rows, n - i0), nt * TILE), dtype=torch.int64,
+                        device=dev)
+        m[:, :n] = pair_mask[i0:i0 + rows]
+        val = (m.view(-1, nt, TILE) * weights).sum(-1)       # < 2^32
+        words[:, i0:i0 + rows] = (val - (val >= 2 ** 31) * 2 ** 32).t().to(
+            torch.int32)
+    pad = torch.zeros((nt, nt * TILE), dtype=torch.int32, device=dev)
+    pad[:, :n] = words
+    # tiles[I, J]: rows of tile I against the columns of tile J
+    tiles = (pad.view(nt, nt, TILE) != 0).any(-1).t().contiguous()
+    return PairBits(words, tiles.to(torch.uint8))
+
+
+def tile_boxes(x):
+    """[nt, 6] axis-aligned boxes (lo xyz, hi xyz) of the 32-point tiles
+    of points x [n, 3]: the kernels' first launch."""
+    n = x.shape[0]
+    nt = -(-n // TILE)
+    lo = torch.full((nt * TILE, 3), float("inf"), dtype=x.dtype,
+                    device=x.device)
+    hi = torch.full((nt * TILE, 3), float("-inf"), dtype=x.dtype,
+                    device=x.device)
+    lo[:n], hi[:n] = x, x
+    return torch.cat([lo.view(nt, TILE, 3).amin(1),
+                      hi.view(nt, TILE, 3).amax(1)], dim=1)
+
+
+def culled_tile_pairs(x, bits, r_max):
+    """bool [nt, nt]: the (row tile, column tile) pairs the kernels skip at
+    points x: none of their pairs live, or boxes whose squared gap is at
+    least r_max^2 (1 + eps), eps 1e-6 in float32 and 1e-14 in float64
+    (the kernels' test, in x's type)."""
+    b = tile_boxes(x)
+    lo, hi = b[:, :3], b[:, 3:]
+    gap = torch.clamp(torch.maximum(lo[None, :, :] - hi[:, None, :],
+                                    lo[:, None, :] - hi[None, :, :]), min=0)
+    g2 = (gap * gap).sum(-1)
+    eps = 1e-6 if x.dtype == torch.float32 else 1e-14
+    r2cull = torch.tensor(r_max * r_max * (1.0 + eps), dtype=x.dtype)
+    return (bits.tiles == 0) | ~(g2 < r2cull.to(x.device))
 
 
 def default_row_chunk(n, row_chunk=None):
@@ -122,9 +190,11 @@ def _check(x, w, pair_mask, v=None):
                          "buffer (padded_pair_mask)")
 
 
-def contact_forces(x, w, pair_mask, k, r_max, phi=None, row_chunk=None):
+def contact_forces(x, w, pair_mask, k, r_max, phi=None, row_chunk=None,
+                   bits=None):
     """Pair forces d(energy)/dx.  CUDA tensors run K13 (the default
-    potential only: a custom ``phi`` raises); CPU tensors run
+    potential only: a custom ``phi`` raises) on ``bits``, the mask's
+    ``pair_bits`` (built here when None); CPU tensors run
     ``contact_forces_ref``."""
     if x.is_cuda:
         if phi is not None:
@@ -132,27 +202,30 @@ def contact_forces(x, w, pair_mask, k, r_max, phi=None, row_chunk=None):
                 "a custom contact potential has no CUDA kernel (K13/K14 "
                 "implement pair_penalty_energy)")
         _check(x, w, pair_mask)
-        g = cuda_ext.load().contact_residual(pair_mask, x, w, float(k),
-                                             float(r_max))
-        cuda_ext.count("contact_residual")
+        bits = pair_bits(pair_mask) if bits is None else bits
+        g = cuda_ext.load().contact_residual(bits.words, bits.tiles, x, w,
+                                             float(k), float(r_max))
+        cuda_ext.count("contact_residual", cuda_ext.short_dtype(x.dtype))
         return g
     phi = pair_penalty_energy(k, r_max) if phi is None else phi
     return contact_forces_ref(x, w, pair_mask, phi, r_max, row_chunk)
 
 
-def contact_hvp(x, v, w, pair_mask, k, r_max, phi=None, row_chunk=None):
+def contact_hvp(x, v, w, pair_mask, k, r_max, phi=None, row_chunk=None,
+                bits=None):
     """Tangent action of the pair forces on point perturbations v.  CUDA
-    tensors run K14 (default potential only); CPU tensors run
-    ``contact_hvp_ref``."""
+    tensors run K14 (default potential only) on ``bits`` as
+    ``contact_forces``; CPU tensors run ``contact_hvp_ref``."""
     if x.is_cuda:
         if phi is not None:
             raise NotImplementedError(
                 "a custom contact potential has no CUDA kernel (K13/K14 "
                 "implement pair_penalty_energy)")
         _check(x, w, pair_mask, v)
-        out = cuda_ext.load().contact_tangent(pair_mask, x, v, w, float(k),
-                                              float(r_max))
-        cuda_ext.count("contact_tangent")
+        bits = pair_bits(pair_mask) if bits is None else bits
+        out = cuda_ext.load().contact_tangent(bits.words, bits.tiles, x, v,
+                                              w, float(k), float(r_max))
+        cuda_ext.count("contact_tangent", cuda_ext.short_dtype(x.dtype))
         return out
     phi = pair_penalty_energy(k, r_max) if phi is None else phi
     return contact_hvp_ref(x, v, w, pair_mask, phi, r_max, row_chunk)

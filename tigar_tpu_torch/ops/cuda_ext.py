@@ -10,9 +10,10 @@ for the process.  Nothing is built at import time.
 
 Each kernel wrapper calls ``count(name)`` right after it launches its
 kernel, so a run can prove which kernels its main path went through; K3's
-also gives its grid, K4's its grid and type, and K2's its type and point
-count (and, in element mode, its local functions), so a run can count its
-launches by multigrid level, type and mode.
+also gives its grid, K4's its grid and type, K2's its type and point
+count (and, in element mode, its local functions), K9's its type and point
+count and K13 / K14's their type, so a run can count its launches by
+multigrid level, type and mode.
 """
 
 from __future__ import annotations

@@ -127,9 +127,12 @@ def _calls():
         "laplace_apply/shape": lambda e: e.laplace_apply(
             z(9, 1, dt=f32), i32(4, 1), z(1, dt=f32), z(1, dt=f32)),
         "contact_residual": lambda e: e.contact_residual(
-            z(1), bad, z(1), 1.0, 1.0),
+            i32(1, 1), z(1, 1, dt=torch.uint8), bad, z(1), 1.0, 1.0),
+        "contact_residual/words": lambda e: e.contact_residual(
+            i32(2, 1), z(1, 1, dt=torch.uint8), z(1, 3), z(1), 1.0, 1.0),
         "contact_tangent": lambda e: e.contact_tangent(
-            z(1), bad, z(1), z(1), 1.0, 1.0),
+            i32(1, 1), z(1, 1, dt=torch.uint8), bad, z(1, 3), z(1), 1.0,
+            1.0),
         "stencil_apply": lambda e: e.stencil_apply(
             z(1), bad, None, None, None, 1.0, 0, None, 0, 1),
         "sumfac_apply": lambda e: e.sumfac_apply(
